@@ -1,0 +1,58 @@
+"""Carry field state between the JAX package and this one.
+
+The JAX engine stores an element as ``int32[..., L]`` limbs of
+``limb_bits`` bits of ``x * 2^(limb_bits * L) mod q``; this package as
+``int32[..., W]`` 32-bit words of ``x * 2^(32W) mod q``. The two meet only
+through canonical integers: limb arrays are never compared or copied
+across. Inputs are reduced mod q, because JAX limb arrays may hold
+non-canonical values (any 12-bit limbs, up to 2^264 for bn254).
+
+A ``Domain`` crosses as gnark bytes: ``ntt.domain.domain_from_bytes`` reads
+what the JAX ``Domain.to_bytes`` writes, and the reverse.
+
+Only numpy crosses the boundary, so this module imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gnark_crypto_tpu_torch.field import mont
+from gnark_crypto_tpu_torch.specs.field import FieldSpec
+
+
+def _limbs_to_ints(spec: FieldSpec, limbs: np.ndarray) -> list[int]:
+    b = spec.limb_bits
+    rows = np.asarray(limbs, dtype=np.int64).reshape(-1, spec.n_limbs)
+    return [sum(int(v) << (b * i) for i, v in enumerate(row))
+            for row in rows]
+
+
+def from_jax_limbs(spec: FieldSpec, limbs: np.ndarray, mont_form: bool = True,
+                   device=mont.DEFAULT_DEVICE) -> torch.Tensor:
+    """JAX limbs (Montgomery w.r.t. 2^(bL) when ``mont_form``) -> port words
+    (Montgomery w.r.t. 2^(32W)), same leading shape."""
+    limbs = np.asarray(limbs)
+    q = spec.modulus
+    vals = _limbs_to_ints(spec, limbs)
+    if mont_form:
+        jax_r_inv = pow(2, -spec.limb_bits * spec.n_limbs, q)
+        vals = [v * jax_r_inv % q for v in vals]
+    out = mont.from_int(spec, vals, mont=mont_form, device=device)
+    return out.reshape(*limbs.shape[:-1], spec.n_words)
+
+
+def to_jax_limbs(spec: FieldSpec, x: torch.Tensor, mont_form: bool = True
+                 ) -> np.ndarray:
+    """Port words -> canonical JAX limbs (int32 numpy), same leading shape."""
+    q = spec.modulus
+    vals = mont.to_int(spec, x.reshape(-1, spec.n_words), mont=mont_form)
+    if mont_form:
+        jax_r = pow(2, spec.limb_bits * spec.n_limbs, q)
+        vals = [v * jax_r % q for v in vals]
+    b, L = spec.limb_bits, spec.n_limbs
+    mask = (1 << b) - 1
+    out = np.asarray([[(v >> (b * i)) & mask for i in range(L)]
+                      for v in vals], dtype=np.int64).astype(np.int32)
+    return out.reshape(*x.shape[:-1], L)

@@ -1,0 +1,35 @@
+// Four-step NTT sub-transforms, n = S1 * S2, element i = h * S2 + l.
+//
+// Replaces the Pallas kernels of gnark_crypto_tpu/ntt/pallas_ntt4.py
+// `run_stages_four_step` (`_stage4`, `_stage4_r4`, `_twist`,
+// `_canonicalize`). The TPU version keeps limbs in sublanes so that every
+// 128-lane tile multiplies by one constant twiddle, and carries lazy
+// [0, 4.5q) values between passes. Here each sub-NTT is one block of
+// `ntt_block_kernel` (ntt_block.cuh) holding its whole row in shared
+// memory, values stay canonical, and the twist is fused into the first
+// step's write-back, so a transform makes two passes over device memory:
+//   columns: S2 sub-NTTs of size S1 over h (stride S2), no transpose;
+//   rows:    S1 sub-NTTs of size S2 over l (contiguous).
+//
+// Bound on the H100: each pass reads and writes 32 bytes per element (plus
+// the twist table in the first pass) against (log2 S / 2) Montgomery
+// products per element, so at 2^20 and 2^24 the passes are memory-bound by
+// a few times over the INT32 rate. Two passes instead of the radix-2 path's
+// k - 9 is what the design buys; S up to 2^12 fits the 227 KB of shared
+// memory (128 KB), which covers n up to 2^24.
+#include "ntt_block.cuh"
+
+// One four-step sub-transform step over the (S1, S2) view of x.
+//   columns = 1: S2 sub-NTTs of size 2^log_s = S1, element stride S2;
+//   columns = 0: S1 sub-NTTs of size 2^log_s = S2, contiguous rows.
+// tw[j] = root^j (j < 2^(log_s - 1)) for the sub-transform's root;
+// twist (may be null) multiplies each output at its own position.
+extern "C" int gct_ntt_four_step(const void* x, void* y, const void* tw,
+                                 int log_s, long long other, int columns,
+                                 const void* twist, int dit,
+                                 const uint32_t* field_words, void* stream) {
+  const long long row_stride = columns ? 1 : (1LL << log_s);
+  const long long elem_stride = columns ? other : 1;
+  return gct::launch_ntt_block(x, y, tw, 0, log_s, other, row_stride,
+                               elem_stride, twist, dit, field_words, stream);
+}

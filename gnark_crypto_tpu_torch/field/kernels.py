@@ -1,0 +1,153 @@
+"""Kernel 1: the batched Montgomery product, and its plain PyTorch version.
+
+``mont_mul(spec, x, y)`` on ``(N, W)`` int32 word tensors returns
+``x * y * 2^(-32W) mod q``, canonical. A CUDA tensor goes to the hand-written
+kernel ``csrc/mont_mul.cu`` (8-word CIOS, one thread per element), a CPU
+tensor to :func:`mont_mul_plain`. The two agree bit for bit, because both
+return the canonical residue.
+
+The plain version cannot use uint32/uint64 arithmetic (PyTorch on the CPU
+has no shifts or compares for them), so it splits each word into two 16-bit
+halves held in int64 and runs the same CIOS over 2W half-limbs with lazy
+carries: 16 * 2W = 32W, so R is the same.
+
+Replaces the Pallas kernel ``gnark_crypto_tpu/field/pallas/mont_mul.py``
+``mont_mul``; see the kernel source for its bound on the H100.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from gnark_crypto_tpu_torch.specs.field import FieldSpec
+from gnark_crypto_tpu_torch.utils import build
+
+M16 = 0xFFFF
+M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# int64 word helpers shared with field/mont.py
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def const_words(words: tuple[int, ...], device: str) -> torch.Tensor:
+    """A cached int64 tensor of unsigned words (never mutate it)."""
+    return torch.tensor(words, dtype=torch.int64, device=device)
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 words -> int64 in [0, 2^32)."""
+    return x.to(torch.int64) & M32
+
+
+def to_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2^32) -> int32 words (two's complement)."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def carry_words(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Carry/borrow-propagate int64 words (any sign, |t_i| < 2^62).
+
+    Returns the words in [0, 2^32) and the signed carry out of the top word
+    (arithmetic shifts floor, so borrows propagate).
+    """
+    out = torch.empty_like(t)
+    c = torch.zeros_like(t[..., 0])
+    for i in range(t.shape[-1]):
+        v = t[..., i] + c
+        out[..., i] = v & M32
+        c = v >> 32
+    return out, c
+
+
+def reduce_once(spec: FieldSpec, s: torch.Tensor, top: torch.Tensor
+                ) -> torch.Tensor:
+    """(s + top * R) - q if that is >= 0, else s; s + top * R < 2q."""
+    d, b = carry_words(s - const_words(spec.q_words, str(s.device)))
+    return torch.where((b + top >= 0)[..., None], d, s)
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _halves(x: torch.Tensor) -> torch.Tensor:
+    u = u32(x)
+    return torch.stack([u & M16, u >> 16], dim=-1).reshape(
+        *x.shape[:-1], 2 * x.shape[-1])
+
+
+def mont_mul_plain(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor
+                   ) -> torch.Tensor:
+    """x * y * R^-1 mod q by lazy-carry CIOS on 16-bit halves in int64.
+
+    Broadcasts x and y over their leading dims. Every half-limb stays below
+    2 * 2W * 2^32 + carries < 2^40, and m * q below 2^56, so int64 is exact.
+    """
+    L = 2 * spec.n_words
+    dev = str(x.device)
+    q16 = const_words(
+        tuple((spec.modulus >> (16 * i)) & M16 for i in range(L)), dev)
+    x16, y16 = torch.broadcast_tensors(_halves(x), _halves(y))
+    t = torch.zeros_like(x16)
+    for i in range(L):
+        t = t + x16[..., i:i + 1] * y16
+        m = (t[..., 0] * spec.qinv16) & M16
+        t = t + m[..., None] * q16
+        c = t[..., 0] >> 16  # the low 16 bits of t_0 are now zero
+        t = torch.nn.functional.pad(t[..., 1:], (0, 1))
+        t[..., 0] += c
+    # words w_i = t_2i + t_2i+1 * 2^16 < 2^56, then one carry pass: < 2q
+    w = t[..., 0::2] + (t[..., 1::2] << 16)
+    s, top = carry_words(w)
+    return to_i32(reduce_once(spec, s, top))
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+def check_kernel_args(spec: FieldSpec, what: str, *ts: torch.Tensor
+                      ) -> None:
+    """What every CUDA wrapper checks before a launch: an 8-word field with
+    q < 2^255, and int32 (N, 8) tensors, contiguous, 16-byte aligned, on
+    one device."""
+    if spec.n_words != 8 or spec.modulus >> 255:
+        raise NotImplementedError(
+            f"{spec.name}: the CUDA kernels take 8-word fields with q < 2^255"
+            " (bn254 Fr/Fp); other fields are not ported to them yet")
+    for t in ts:
+        if (t.dtype != torch.int32 or t.dim() != 2
+                or t.shape[1] != spec.n_words):
+            raise ValueError(f"{what}: expected int32 (N, {spec.n_words}), "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if (t.device != ts[0].device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{what}: tensors must share one device and be "
+                             "contiguous and 16-byte aligned")
+
+
+def mont_mul(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor
+             ) -> torch.Tensor:
+    """Montgomery product of two (N, W) int32 tensors on one device."""
+    if not x.is_cuda:
+        return mont_mul_plain(spec, x, y)
+    check_kernel_args(spec, "mont_mul", x, y)
+    if y.shape != x.shape:
+        raise ValueError("mont_mul: x and y differ in shape")
+    out = torch.empty_like(x)
+    fn = build.function("mont_mul", "gct_mont_mul", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p])
+    mont_mul.launches += 1
+    build.check(fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0],
+                   build.field_words(spec), build.stream_ptr(x)),
+                "mont_mul launch")
+    return out
+
+
+mont_mul.launches = 0
