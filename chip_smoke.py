@@ -4,25 +4,36 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``gnark_crypto_tpu_torch/csrc`` (nvcc, sm_90a),
-then drives the port's main path, the bn254 Fr NTT, through its public entry
-points (``Domain``, ``fft``, ``fft_inverse``, ``mont.mul``) at 2^20 and 2^24
-elements, and holds every result and every kernel against the plain PyTorch
-versions on the same card, bit for bit (the field is exact: the tolerance is
-0). Phases:
+then drives the port's two ported paths through their public entry points
+and holds every result and every kernel against the plain PyTorch versions
+on the same card, bit for bit (the field is exact: the tolerance is 0):
 
-1. main path, with every kernel's launch count set to 0 before and read
-   after: mont_mul on 2^20 random pairs plus the edge values 0, 1, q-1; all
-   four (decimation, direction) pairs with and without coset at 2^20; DIF
-   forward and the DIT inverse round trip at 2^24;
-2. checks: each kernel against its plain version at the main path's shapes;
-   each transform against the plain radix-2 stages; round trips; sampled
-   outputs and twiddles against Python integers;
-3. timing with CUDA events: each kernel, its plain version and whole
-   transforms, with each kernel's bound (bytes over 3.35 TB/s, or 32-bit
-   multiply-adds over the INT32 rate, whichever is larger).
+* the bn254 Fr NTT (``Domain``, ``fft``, ``fft_inverse``, ``mont.mul``) at
+  2^20 and 2^24 elements;
+* the bn254 G1 MSM (``curve_ops``, ``scalar_mul``, ``to_affine``, ``msm``,
+  ``batch_scalar_mul``): points [i+1]G for i < 2^16 by a 17-bit ladder,
+  tiled to 2^20 and 2^24, random canonical scalars, MSMs at 2^16, 2^20 and
+  2^24, ``batch_scalar_mul`` at 2^16, and a 2^12 ``stark_g1`` MSM (a = 1)
+  so that the a != 0 branches of the kernels launch.
 
-Prints the card's name and power limit, the build time, a ``kernels`` JSON
-line, a ``timings`` JSON line and, last, the device line. Exits non-zero,
+Phases:
+
+1. each path, with every kernel's launch count set to 0 just before it and
+   read just after (the MSM path's wall time and peak memory per size are
+   taken here);
+2. checks: each kernel against its plain version at the main path's
+   shapes (the MSM kernels on the inputs they received in a second 2^20
+   MSM); each transform against the plain radix-2 stages, round trips and
+   Python-integer samples; each MSM against msm([k_i]G, s) =
+   [sum s_i k_i mod r]G, a 2^8 random-point MSM against a Python-int curve
+   oracle, and ``batch_scalar_mul`` lanes against Python integers;
+3. timing with CUDA events: each kernel, its plain version and its bound
+   (bytes over 3.35 TB/s, or 32-bit multiply-adds over the INT32 rate,
+   whichever is larger); whole transforms; the 2^20 MSM split into its
+   steps (host clock, synchronised after each).
+
+Prints the card's name and power limit, the build time, a ``timings`` JSON
+line, a ``kernels`` JSON line and, last, the device line. Exits non-zero,
 with no result, without a CUDA card or without the package beside it.
 """
 
@@ -56,6 +67,419 @@ def bound(nbytes: float, mads: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = mads / INT32_MAD_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def oracle_add(P, Q, p: int, a: int):
+    """Affine short-Weierstrass addition with Python ints; None = infinity."""
+    if P is None:
+        return Q
+    if Q is None:
+        return P
+    (x1, y1), (x2, y2) = P, Q
+    if x1 == x2 and (y1 + y2) % p == 0:
+        return None
+    if P == Q:
+        lam = (3 * x1 * x1 + a) * pow(2 * y1, -1, p) % p
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, -1, p) % p
+    x3 = (lam * lam - x1 - x2) % p
+    return x3, (lam * (x1 - x3) - y1) % p
+
+
+def oracle_mul(P, k: int, p: int, a: int):
+    acc = None
+    while k:
+        if k & 1:
+            acc = oracle_add(acc, P, p, a)
+        P = oracle_add(P, P, p, a)
+        k >>= 1
+    return acc
+
+
+def width(args) -> int:
+    """The first dimension of a wrapper call's first tensor argument."""
+    return next(a.shape[0] for a in args if hasattr(a, "shape"))
+
+
+class Recorder:
+    """Stands in for a kernel wrapper in its module: calls it and, while
+    ``on``, keeps the arguments of the widest call (first dimension of the
+    first tensor argument), or of every call with ``keep_all``."""
+
+    def __init__(self, module, name: str, keep_all: bool = False):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.keep_all, self.on = keep_all, False
+        self.args, self.calls = None, []
+
+    def __call__(self, *args):
+        if self.on:
+            if self.keep_all:
+                self.calls.append(args)
+            else:
+                n = width(args)
+                if self.args is None or n > self.width:
+                    self.args, self.width = args, n
+        return self.fn(*args)
+
+    @property
+    def launches(self) -> int:
+        """The wrapped wrapper's count: a wrapper counts its launches
+        through its module-level name, which is this object while it is
+        installed."""
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.launches = value
+
+    def install(self):
+        setattr(self.module, self.name, self)
+
+    def remove(self):
+        setattr(self.module, self.name, self.fn)
+
+
+class MsmSlice:
+    """The bn254 G1 MSM path: inputs, main path, checks and timings."""
+
+    KERNELS = ("exp_const", "jac_add", "jac_double", "affine_prep",
+               "affine_finish", "jac_fold_windows")
+
+    def __init__(self, dev, nprng, base_log: int = 16,
+                 sizes=(16, 20, 24), stark_log: int = 12):
+        import torch
+
+        from gnark_crypto_tpu_torch.curve.jacobian import curve_ops
+        from gnark_crypto_tpu_torch.field import exp as field_exp
+        from gnark_crypto_tpu_torch.field import point_add
+        from gnark_crypto_tpu_torch.msm import pippenger
+        from gnark_crypto_tpu_torch.specs import curve as cs
+
+        self.torch, self.dev, self.nprng = torch, dev, nprng
+        self.pp, self.point_add, self.field_exp = pippenger, point_add, \
+            field_exp
+        self.spec = cs.get_curve("bn254_g1")
+        self.stark = cs.get_curve("stark_g1")
+        self.curve = curve_ops(self.spec)
+        self.wrappers = {"exp_const": field_exp.exp_const,
+                         **{k: getattr(point_add, k) for k in self.KERNELS
+                            if k != "exp_const"}}
+        self.recorders = [Recorder(field_exp, "exp_const"),
+                          Recorder(point_add, "jac_fold_windows",
+                                   keep_all=True)]
+        self.recorders += [Recorder(point_add, k) for k in
+                           ("jac_add", "affine_prep", "affine_finish")]
+        self.rec = {r.name: r for r in self.recorders}
+        self.results, self.wall, self.peak = {}, {}, {}
+        # points [i+1]G, i < 2^base_log, tiled to 2^k for k in sizes; the
+        # kernels are checked and timed on a second MSM at sizes[1]
+        self.base_log, self.sizes, self.stark_log = base_log, sizes, \
+            stark_log
+
+    # -- inputs --------------------------------------------------------------
+    def random_scalars(self, spec, n: int):
+        """n canonical plain Fr words (top word below r's, so < r)."""
+        import numpy as np
+
+        w = self.nprng.integers(0, 1 << 32, size=(n, spec.fr.n_words),
+                                dtype=np.uint32)
+        w[:, -1] %= spec.fr.q_words[-1]
+        return self.torch.from_numpy(w.view(np.int32)).to(self.dev)
+
+    def multiples(self, spec, n: int):
+        """[i+1]G for i < n by the ladder of the port's API, as affine."""
+        from gnark_crypto_tpu_torch.curve.jacobian import Jac, curve_ops
+
+        curve = curve_ops(spec)
+        g = curve.generator_jac(device=self.dev)
+        G = Jac(*(c.expand(n, -1) for c in g))
+        ks = curve.fr.from_int(list(range(1, n + 1)), mont=False,
+                               device=self.dev)
+        return curve.to_affine(curve.scalar_mul(G, ks,
+                                                nbits=n.bit_length()))
+
+    # -- phase 1 -------------------------------------------------------------
+    def main_path(self):
+        """Builds the inputs and runs every MSM; returns the seconds."""
+        torch, pp = self.torch, self.pp
+        from gnark_crypto_tpu_torch.curve.jacobian import Affine
+
+        for r in self.recorders:
+            r.install()
+        self.rec["jac_fold_windows"].on = True
+        t0 = time.perf_counter()
+        p16 = self.multiples(self.spec, 1 << self.base_log)
+        self.p16 = p16
+        self.s24 = self.random_scalars(self.spec, 1 << self.sizes[-1])
+        for k in self.sizes:
+            pts = self.tiled(k)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            self.results[k] = pp.msm(self.spec, pts, self.s24[:1 << k])
+            torch.cuda.synchronize()
+            self.wall[k] = time.perf_counter() - t1
+            self.peak[k] = torch.cuda.max_memory_allocated()
+            del pts
+        self.bsm = pp.batch_scalar_mul(
+            self.spec, Affine(p16.x[0], p16.y[0]),
+            self.s24[:1 << self.base_log])
+        self.stark_pts = self.multiples(self.stark, 1 << self.stark_log)
+        self.stark_s = self.random_scalars(self.stark, 1 << self.stark_log)
+        self.results["stark"] = pp.msm(self.stark, self.stark_pts,
+                                       self.stark_s)
+        torch.cuda.synchronize()
+        self.rec["jac_fold_windows"].on = False
+        return time.perf_counter() - t0
+
+    # -- phase 2 -------------------------------------------------------------
+    def affine_ints(self, curve, pt):
+        from gnark_crypto_tpu_torch.curve.jacobian import Jac
+        from gnark_crypto_tpu_torch.field import mont
+
+        aff = curve.to_affine(Jac(*(c.reshape(-1, c.shape[-1])
+                                    for c in pt)))
+        xs, ys = (mont.to_int(curve.spec.fp, c) for c in aff)
+        return [None if x == 0 and y == 0 else (x, y)
+                for x, y in zip(xs, ys)]
+
+    def weighted_total(self, s_words, base_n: int, r: int) -> int:
+        """sum_i s_i * ((i mod base_n) + 1) mod r, exactly, on the card:
+        16-bit halves times k <= 2^16 summed over <= 2^24 lanes < 2^56."""
+        torch = self.torch
+        n = s_words.shape[0]
+        u = s_words.to(torch.int64) & 0xFFFFFFFF
+        halves = torch.stack([u & 0xFFFF, u >> 16], -1).reshape(n, -1)
+        k = torch.arange(n, device=self.dev) % base_n + 1
+        sums = (halves * k[:, None]).sum(0).tolist()
+        return sum(v << (16 * j) for j, v in enumerate(sums)) % r
+
+    def checks(self, compare, check):
+        """Every MSM against the identity and the oracles, then each kernel
+        against its plain version on the inputs of a second 2^20 MSM."""
+        from gnark_crypto_tpu_torch.curve.jacobian import Affine, curve_ops
+        from gnark_crypto_tpu_torch.field import mont
+
+        torch, pp, pa = self.torch, self.pp, self.point_add
+        for spec, key, scal, base_n in (
+                [(self.spec, k, self.s24[:1 << k], 1 << self.base_log)
+                 for k in self.sizes]
+                + [(self.stark, "stark", self.stark_s,
+                    1 << self.stark_log)]):
+            p, a = spec.fp.modulus, spec.a % spec.fp.modulus
+            total = self.weighted_total(scal, base_n, spec.fr.modulus)
+            want = oracle_mul((spec.gx % p, spec.gy % p), total, p, a)
+            got = self.affine_ints(curve_ops(spec), self.results[key])
+            tag = (f"{spec.name} 2^{key}" if key != "stark"
+                   else f"{spec.name} 2^{self.stark_log}")
+            check(got == [want], f"msm {tag} == [sum s_i k_i]G (identity)")
+
+        # 2^8 random points against the Python-int oracle
+        rng = random.Random(SEED + 8)
+        p, r = self.spec.fp.modulus, self.spec.fr.modulus
+        g = (self.spec.gx, self.spec.gy)
+        pts = [oracle_mul(g, rng.randrange(1, 1 << 64), p, 0)
+               for _ in range(256)]
+        ks = [rng.randrange(r) for _ in range(256)]
+        want = None
+        for pt, k in zip(pts, ks):
+            want = oracle_add(want, oracle_mul(pt, k, p, 0), p, 0)
+        f = self.curve.fp
+        P = Affine(f.from_int([t[0] for t in pts], device=self.dev),
+                   f.from_int([t[1] for t in pts], device=self.dev))
+        got = pp.msm(self.spec, P, self.curve.fr.from_int(
+            ks, mont=False, device=self.dev))
+        check(self.affine_ints(self.curve, got) == [want],
+              "msm 2^8 random points == Python-int oracle")
+
+        # batch_scalar_mul at sampled lanes
+        nb = 1 << self.base_log
+        lanes = [0, 1, nb - 1] + rng.sample(range(2, nb - 1), 5)
+        kk = mont.to_int(self.spec.fr, self.s24[lanes], mont=False)
+        got = self.affine_ints(self.curve, type(self.bsm)(
+            *(c[lanes] for c in self.bsm)))
+        check(got == [oracle_mul(g, k, p, 0) for k in kk],
+              f"batch_scalar_mul 2^{self.base_log}: 8 sampled lanes == "
+              "Python ints")
+
+        # the kernels on the inputs of a second 2^20 MSM
+        for name in ("exp_const", "jac_add", "affine_prep",
+                     "affine_finish"):
+            self.rec[name].on = True
+        k20 = self.sizes[1]
+        again = pp.msm(self.spec, self.tiled(k20), self.s24[:1 << k20])
+        for r_ in self.recorders:
+            r_.on = False
+            r_.remove()
+        check(all(torch.equal(u, v)
+                  for u, v in zip(again, self.results[k20])),
+              f"msm 2^{k20} run twice: the same Jacobian coordinates")
+        self.kargs = {name: self.rec[name].args for name in
+                      ("exp_const", "jac_add", "affine_prep",
+                       "affine_finish")}
+        self.kargs["jac_double"] = (self.spec.fp, self.spec.a,
+                                    *self.curve.from_affine(self.p16))
+        folds = self.rec["jac_fold_windows"].calls
+        # one fold per MSM chunk: 2^16, 2^20, four chunks of 2^24, stark
+        self.fold_args = {f"2^{k}": folds[i]
+                          for i, k in enumerate(self.sizes)}
+        self.fold_args[f"stark 2^{self.stark_log}"] = folds[-1]
+        self.kargs["jac_fold_windows"] = folds[1]
+        plain = {"exp_const": self.field_exp.exp_const_plain,
+                 "jac_add": pa.jac_add_plain,
+                 "jac_double": pa.jac_double_plain,
+                 "affine_prep": pa.affine_prep_plain,
+                 "affine_finish": pa.affine_finish_plain,
+                 "jac_fold_windows": pa.jac_fold_windows_plain}
+        self.plain = plain
+        for name, args in self.kargs.items():
+            outs = self.wrappers[name](*args)
+            wants = plain[name](*args)
+            if name == "exp_const":
+                outs, wants = (outs,), (wants,)
+            for i, (o, w) in enumerate(zip(outs, wants)):
+                compare(name, o, w, f"{width(args)} lanes, output {i}")
+        for tag, args in self.fold_args.items():
+            if args is not folds[1]:
+                for i, (o, w) in enumerate(zip(
+                        pa.jac_fold_windows(*args),
+                        pa.jac_fold_windows_plain(*args))):
+                    compare("jac_fold_windows", o, w, f"{tag}, output {i}")
+        stark_dbl = (self.stark.fp, self.stark.a,
+                     *curve_ops(self.stark).from_affine(self.stark_pts))
+        for i, (o, w) in enumerate(zip(pa.jac_double(*stark_dbl),
+                                       pa.jac_double_plain(*stark_dbl))):
+            compare("jac_double", o, w,
+                    f"stark_g1 2^{self.stark_log} lanes, output {i}")
+
+    # -- phase 3 -------------------------------------------------------------
+    def bounds(self):
+        """(bytes, multiply-adds) each kernel's recorded call must move and
+        do on its data: mask bits tell which lanes do which products."""
+        torch, pa = self.torch, self.point_add
+        mm = MADS_PER_MONT_MUL
+        out = {}
+        spec, a, *pts = self.kargs["affine_prep"]
+        n = pts[0].shape[0]
+        _, _, bits = pa.affine_prep(spec, a, *pts)
+        out["affine_prep"] = (n * (4 * ELEM_BYTES + 2 * ELEM_BYTES + 4),
+                              mm * int(((bits & pa.MB_DBL) != 0).sum()))
+        fargs = self.kargs["affine_finish"]
+        mb, tb = fargs[12], fargs[13]
+        eq = (tb & 1) != 0
+        generic = eq & ((mb & (pa.MB_INFOUT | pa.MB_PINF | pa.MB_QINF)) == 0)
+        n = fargs[2].shape[0]
+        # always l_suf and the tree bits in, seven outputs out; r_pre, num,
+        # 1/den and the mask bits only where the runs meet (eq); l_pre and
+        # r_suf only where the sum does not replace them
+        keep_pre = n - int((eq & ((tb & 2) != 0)).sum())
+        keep_suf = n - int((eq & ((tb & 4) != 0)).sum())
+        out["affine_finish"] = (
+            n * (2 * ELEM_BYTES + 4 + 7 * ELEM_BYTES)
+            + int(eq.sum()) * (4 * ELEM_BYTES + 4)
+            + (keep_pre + keep_suf) * 2 * ELEM_BYTES,
+            3 * mm * int(generic.sum()))
+        spec, a, *c = self.kargs["jac_add"]
+        both = ~(torch.all(c[2] == 0, -1) | torch.all(c[5] == 0, -1))
+        out["jac_add"] = (c[0].shape[0] * 9 * ELEM_BYTES,
+                          16 * mm * int(both.sum()))
+        spec, a, *c = self.kargs["jac_double"]
+        out["jac_double"] = (c[0].shape[0] * 6 * ELEM_BYTES,
+                             (7 if a == 0 else 10) * mm * c[0].shape[0])
+        spec, x, e = self.kargs["exp_const"]
+        self.exp_serial = e.bit_length() + bin(e).count("1")
+        out["exp_const"] = (x.shape[0] * 2 * ELEM_BYTES,
+                            mm * self.exp_serial * x.shape[0])
+        for tag, (spec, a, fx, fy, fz, c_) in self.fold_args.items():
+            nwin = fx.shape[0]
+            serial = c_ * (nwin - 1) * 7 + (nwin - 1) * 16
+            out[f"jac_fold_windows {tag}"] = (
+                (3 * nwin + 3) * ELEM_BYTES, mm * serial, serial)
+        return out
+
+    def timings(self, cuda_ms, timings, kernel_rows):
+        torch, pp = self.torch, self.pp
+        for name, (nbytes, mads, *serial) in self.bounds().items():
+            kname = name.split(" ")[0]
+            args = (self.fold_args[name.split(" ", 1)[1]]
+                    if kname == "jac_fold_windows" else self.kargs[kname])
+            fn, pfn = self.wrappers[kname], self.plain[kname]
+            b_ms, b_by = bound(nbytes, mads)
+            row = {"ms": cuda_ms(lambda: fn(*args), reps=5),
+                   "plain_ms": cuda_ms(lambda: pfn(*args), reps=1,
+                                       rounds=1),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "lanes": width(args)}
+            if kname == "exp_const":
+                row["serial_products"] = self.exp_serial
+            if serial:
+                row["serial_products"] = serial[0]
+            label = name if kname == "jac_fold_windows" else (
+                f"{name} {width(args)} lanes")
+            timings[label] = row
+            if (kname not in kernel_rows
+                    or name.endswith(f"2^{self.sizes[1]}")):
+                kernel_rows[kname] = row
+        for k in self.sizes:
+            # the main path's run was the first at its size; time it again
+            pts = self.tiled(k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pp.msm(self.spec, pts, self.s24[:1 << k])
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            timings[f"msm bn254 2^{k}"] = {
+                "s": warm, "points_per_s": (1 << k) / warm,
+                "s_main_path": self.wall[k], "peak_bytes": self.peak[k]}
+            del pts
+        timings[f"msm 2^{self.sizes[1]} steps"] = self.split_steps()
+
+    def tiled(self, k: int):
+        from gnark_crypto_tpu_torch.curve.jacobian import Affine
+
+        reps = 1 << (k - self.base_log)
+        return Affine(self.p16.x.repeat(reps, 1), self.p16.y.repeat(reps, 1))
+
+    def split_steps(self):
+        """The sizes[1] MSM again, each step synchronised and timed."""
+        torch, pp = self.torch, self.pp
+        steps = {"digits": "signed_digits", "sort and gather":
+                 "_sorted_lanes", "phase 1 (affine levels)": "_affine_levels",
+                 "bucket rebuild": "_emitted_to_buckets",
+                 "phase 2 (jacobian levels)": "_jacobian_levels",
+                 "sweep": "_weighted_sweep", "fold": "_fold_windows"}
+        spent = {k: 0.0 for k in steps}
+        saved = {}
+
+        def timed(label, fn):
+            def run(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                spent[label] += time.perf_counter() - t
+                return out
+            return run
+
+        for label, attr in steps.items():
+            saved[attr] = getattr(pp, attr)
+            setattr(pp, attr, timed(label, saved[attr]))
+        k20 = self.sizes[1]
+        pts = self.tiled(k20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            pp.msm(self.spec, pts, self.s24[:1 << k20])
+            torch.cuda.synchronize()
+        finally:
+            for attr, fn in saved.items():
+                setattr(pp, attr, fn)
+        total = time.perf_counter() - t0
+        spent["other"] = total - sum(spent.values())
+        spent["total"] = total
+        return spent
+
 
 
 def main() -> int:
@@ -96,10 +520,27 @@ def main() -> int:
         w[:, -1] %= q_top
         return torch.from_numpy(w.view(np.int32)).to(dev)
 
+    msm = MsmSlice(dev, nprng)
+    ntt_kernels = ("mont_mul", "ntt_radix2_stage", "ntt_radix2_block",
+                   "ntt_four_step")
     wrappers = {"mont_mul": kernels.mont_mul,
                 "ntt_radix2_stage": radix2.stage,
                 "ntt_radix2_block": radix2.block,
-                "ntt_four_step": four_step.sub_ntt}
+                "ntt_four_step": four_step.sub_ntt, **msm.wrappers}
+
+    def drive(path: str, run, kernel_names) -> dict:
+        """Counts to 0, the path, counts read: {kernel: launches}."""
+        for w in wrappers.values():
+            w.launches = 0
+        seconds = run()
+        counts = {name: w.launches for name, w in wrappers.items()}
+        print(f"{path} path: " + ", ".join(
+            f"{k}={v}" for k, v in counts.items()) + f" ({seconds:.2f} s)",
+            flush=True)
+        for name in kernel_names:
+            check(counts[name] > 0,
+                  f"{name} launched on the {path} path ({counts[name]})")
+        return counts
 
     # ---------------------------------------------------------------- phase 1
     n20, n24 = 1 << 20, 1 << 24
@@ -111,30 +552,34 @@ def main() -> int:
     a24 = random_elems(n24)
     pairs = [(d, inv) for d in (fft.DIF, fft.DIT) for inv in (False, True)]
 
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    xy = mont.mul(spec, x, y)
-    dom20 = Domain(spec, n20, device=dev)
     out20 = {}
-    for dec, inv in pairs:
-        for coset in (False, True):
-            f = fft.fft_inverse if inv else fft.fft
-            out20[dec, inv, coset] = f(dom20, a20, dec, coset)
-    back20 = fft.fft_inverse(dom20, out20[fft.DIF, False, False], fft.DIT)
-    back20c = fft.fft_inverse(dom20, out20[fft.DIF, False, True], fft.DIT,
-                              coset=True)
-    back20r = fft.fft_inverse(dom20, out20[fft.DIT, False, False], fft.DIF)
-    dom24 = Domain(spec, n24, with_coset=False, device=dev)
-    f24 = fft.fft(dom24, a24, fft.DIF)
-    back24 = fft.fft_inverse(dom24, f24, fft.DIT)
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
-    print("kernels: " + ", ".join(f"{k}={v}" for k, v in launches.items())
-          + f" (main path {main_s:.2f} s)", flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"{name} launched on the main path ({count})")
+
+    def ntt_path() -> float:
+        nonlocal xy, dom20, back20, back20c, back20r, dom24, f24, back24
+        t0 = time.perf_counter()
+        xy = mont.mul(spec, x, y)
+        dom20 = Domain(spec, n20, device=dev)
+        for dec, inv in pairs:
+            for coset in (False, True):
+                f = fft.fft_inverse if inv else fft.fft
+                out20[dec, inv, coset] = f(dom20, a20, dec, coset)
+        back20 = fft.fft_inverse(dom20, out20[fft.DIF, False, False],
+                                 fft.DIT)
+        back20c = fft.fft_inverse(dom20, out20[fft.DIF, False, True],
+                                  fft.DIT, coset=True)
+        back20r = fft.fft_inverse(dom20, out20[fft.DIT, False, False],
+                                  fft.DIF)
+        dom24 = Domain(spec, n24, with_coset=False, device=dev)
+        f24 = fft.fft(dom24, a24, fft.DIF)
+        back24 = fft.fft_inverse(dom24, f24, fft.DIT)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    xy = dom20 = back20 = back20c = back20r = dom24 = f24 = back24 = None
+    ntt_counts = drive("NTT", ntt_path, ntt_kernels)
+    msm_counts = drive("MSM", msm.main_path, msm.KERNELS)
+    launches = {name: ntt_counts[name] + msm_counts[name]
+                for name in wrappers}
 
     # ---------------------------------------------------------------- phase 2
     err = {name: 0 for name in wrappers}
@@ -238,6 +683,8 @@ def main() -> int:
         check(mont.to_int(spec, out20[fft.DIF, False, False][int(rev[i])])
               == acc, f"2^20 DIF output at frequency {i} == Horner sum")
 
+    msm.checks(compare, check)
+
     # ---------------------------------------------------------------- phase 3
     def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
         """Median over rounds of the mean time of `reps` back-to-back calls."""
@@ -326,6 +773,8 @@ def main() -> int:
                                                   False), reps=1, rounds=1)}
         del b
 
+    msm.timings(cuda_ms, timings, kernel_rows)
+
     kernel_line = []
     sources = {
         "mont_mul": ("gnark_crypto_tpu_torch/csrc/mont_mul.cu",
@@ -336,6 +785,18 @@ def main() -> int:
                              "gnark_crypto_tpu/ntt/pallas_ntt.py:309"),
         "ntt_four_step": ("gnark_crypto_tpu_torch/csrc/ntt_four_step.cu",
                           "gnark_crypto_tpu/ntt/pallas_ntt4.py:627"),
+        "exp_const": ("gnark_crypto_tpu_torch/csrc/exp.cu",
+                      "gnark_crypto_tpu/field/pallas/exp.py:67"),
+        "jac_add": ("gnark_crypto_tpu_torch/csrc/point_add.cu",
+                    "gnark_crypto_tpu/field/pallas/point_add.py:198"),
+        "jac_double": ("gnark_crypto_tpu_torch/csrc/point_add.cu",
+                       "gnark_crypto_tpu/field/pallas/point_add.py:209"),
+        "affine_prep": ("gnark_crypto_tpu_torch/csrc/affine_level.cu",
+                        "gnark_crypto_tpu/field/pallas/point_add.py:294"),
+        "affine_finish": ("gnark_crypto_tpu_torch/csrc/affine_level.cu",
+                          "gnark_crypto_tpu/field/pallas/point_add.py:329"),
+        "jac_fold_windows": ("gnark_crypto_tpu_torch/csrc/point_add.cu",
+                             "gnark_crypto_tpu/field/pallas/point_add.py:421"),
     }
     for name in wrappers:
         r = kernel_rows[name]

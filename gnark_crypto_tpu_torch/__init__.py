@@ -8,10 +8,12 @@ entry point runs where its input tensor lives; constructors default to
 ``device="cuda"``. Plain PyTorch versions of every kernel serve CPU tensors.
 
 Ported so far (see ROADMAP.md for the rest):
-  specs/      field constant registry
-  field/      Montgomery word engine + mont_mul kernel
+  specs/      field and curve constant registries
+  field/      Montgomery word engine; mont_mul, exp_const and point kernels
   ntt/        radix-2 domains, radix-2 and four-step NTT kernels
-  convert.py  JAX limb arrays <-> port word tensors
+  curve/      G1 group law in Jacobian coordinates
+  msm/        G1 Pippenger MSM (batch-affine bucket tree)
+  convert.py  JAX limb arrays and points <-> port word tensors
 """
 
 # curve ID registry (ecc.ID analogue)
@@ -20,8 +22,8 @@ CURVES = (
     "bw6_633", "bw6_761", "grumpkin", "secp256k1", "secp256r1", "stark",
 )
 
-# The curve families of the reference. This package has no curve, pairing or
-# MSM code yet: these name what later slices port (ROADMAP.md queue 1).
+# The curve families of the reference. This package has G1 and its MSM;
+# pairings and G2 come with later slices (ROADMAP.md queue 1).
 PAIRING_CURVES = (
     "bn254", "bls12_381", "bls12_377", "bls24_315", "bls24_317",
     "bw6_761", "bw6_633",

@@ -8,7 +8,9 @@ across. Inputs are reduced mod q, because JAX limb arrays may hold
 non-canonical values (any 12-bit limbs, up to 2^264 for bn254).
 
 A ``Domain`` crosses as gnark bytes: ``ntt.domain.domain_from_bytes`` reads
-what the JAX ``Domain.to_bytes`` writes, and the reverse.
+what the JAX ``Domain.to_bytes`` writes, and the reverse. A curve point
+crosses coordinate by coordinate (:func:`point_from_jax`,
+:func:`point_to_jax`); scalars cross with ``mont_form=False``.
 
 Only numpy crosses the boundary, so this module imports nothing of JAX.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gnark_crypto_tpu_torch.curve.jacobian import Affine, Jac
 from gnark_crypto_tpu_torch.field import mont
 from gnark_crypto_tpu_torch.specs.field import FieldSpec
 
@@ -56,3 +59,18 @@ def to_jax_limbs(spec: FieldSpec, x: torch.Tensor, mont_form: bool = True
     out = np.asarray([[(v >> (b * i)) & mask for i in range(L)]
                       for v in vals], dtype=np.int64).astype(np.int32)
     return out.reshape(*x.shape[:-1], L)
+
+
+def point_from_jax(spec: FieldSpec, p, device=mont.DEFAULT_DEVICE):
+    """A JAX ``Affine``/``Jac`` (coordinates as numpy or JAX limb arrays
+    over ``spec``, the curve's base field) -> the port's point of the
+    same kind."""
+    kind = Jac if len(p) == 3 else Affine
+    return kind(*(from_jax_limbs(spec, np.asarray(c), device=device)
+                  for c in p))
+
+
+def point_to_jax(spec: FieldSpec, p):
+    """A port point -> the same kind of NamedTuple holding canonical JAX
+    limb arrays (numpy); wrap with the JAX ``Affine``/``Jac`` to use it."""
+    return type(p)(*(to_jax_limbs(spec, c) for c in p))

@@ -7,7 +7,9 @@ canonical (< q). Every op is batched over the leading dims and runs on the
 device of its inputs; constructors take ``device`` and default to CUDA.
 
 ``mul`` (and everything built on it) goes to the CUDA kernel for CUDA
-tensors and to the plain version for CPU tensors (``field/kernels.py``).
+tensors and to the plain version for CPU tensors (``field/kernels.py``);
+so does ``exp_const`` (``field/exp.py``), and with it ``inverse``,
+``legendre`` and ``sqrt``.
 Additions, subtractions and the other linear ops are plain tensor code on
 both devices, as in the JAX engine, which also runs them outside any kernel.
 Word carries are computed in int64, where PyTorch has every op it needs on
@@ -21,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from gnark_crypto_tpu_torch.field import exp as field_exp
 from gnark_crypto_tpu_torch.field.kernels import (
     carry_words, const_words, mont_mul, reduce_once, to_i32, u32)
 from gnark_crypto_tpu_torch.specs.field import FieldSpec, int_to_words
@@ -192,15 +195,13 @@ def select(spec: FieldSpec, cond: torch.Tensor, x: torch.Tensor,
 
 def exp_const(spec: FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
     """x^e for a Python-int exponent (Montgomery in/out), square-and-
-    multiply MSB first (reference ``element.go:748`` Exp)."""
-    if e < 0:
-        raise ValueError("negative exponent: combine with inverse()")
-    res = ones(spec, x.shape[:-1], device=x.device)
-    for i in range(e.bit_length() - 1, -1, -1):
-        res = square(spec, res)
-        if (e >> i) & 1:
-            res = mul(spec, res, x)
-    return res
+    multiply MSB first (reference ``element.go:748`` Exp).
+
+    CUDA tensors run the whole ladder in one ``exp_const`` kernel launch,
+    CPU tensors its plain version (``field/exp.py``)."""
+    W = spec.n_words
+    flat = x.reshape(-1, W).contiguous()
+    return field_exp.exp_const(spec, flat, e).reshape(x.shape)
 
 
 def inverse(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:

@@ -12,13 +12,17 @@ The tolerance is exact equality: both versions return canonical residues.
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
-from gnark_crypto_tpu_torch.field import kernels
+from gnark_crypto_tpu_torch.curve.jacobian import Affine, Jac, curve_ops
+from gnark_crypto_tpu_torch.field import exp, kernels, point_add
 from gnark_crypto_tpu_torch.field import mont
+from gnark_crypto_tpu_torch.msm import pippenger
 from gnark_crypto_tpu_torch.ntt import fft, four_step, radix2
 from gnark_crypto_tpu_torch.ntt.domain import Domain
+from gnark_crypto_tpu_torch.specs import curve as cs
 from gnark_crypto_tpu_torch.specs import field as fs
 
 SPEC = fs.BN254_FR
@@ -99,3 +103,178 @@ def test_wrappers_count_launches_and_reject(cuda):
     _, _, tw1, _, _ = four_step.tables(dom, False)
     with pytest.raises(ValueError):
         four_step.sub_ntt(SPEC, a, tw1, 13, 2, True, False)
+
+
+# -- exp_const and the point kernels -----------------------------------------
+
+CURVES = ["bn254_g1", "stark_g1"]  # a = 0 and a = 1
+
+
+def oracle_add(P, Q, p, a):
+    """Affine group law with Python ints; None is infinity."""
+    if P is None:
+        return Q
+    if Q is None:
+        return P
+    (x1, y1), (x2, y2) = P, Q
+    if x1 == x2 and (y1 + y2) % p == 0:
+        return None
+    if P == Q:
+        lam = (3 * x1 * x1 + a) * pow(2 * y1, -1, p) % p
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, -1, p) % p
+    x3 = (lam * lam - x1 - x2) % p
+    return x3, (lam * (x1 - x3) - y1) % p
+
+
+def oracle_mul(P, k, p, a):
+    acc = None
+    while k:
+        if k & 1:
+            acc = oracle_add(acc, P, p, a)
+        P = oracle_add(P, P, p, a)
+        k >>= 1
+    return acc
+
+
+def edge_batches(curve, n, seed, device):
+    """Two (n,) Jacobian batches: random multiples of G with P + P,
+    P + (-P), P + inf, inf + Q and inf + inf lanes mixed in."""
+    p, a = curve.spec.fp.modulus, curve.spec.a % curve.spec.fp.modulus
+    g = (curve.spec.gx % p, curve.spec.gy % p)
+    rng = random.Random(seed)
+    base = [oracle_mul(g, rng.randrange(1, 1 << 20), p, a) for _ in range(32)]
+    neg = [(x, -y % p) for x, y in base]
+    ps, qs = [], []
+    for i in range(n):
+        u = rng.choice(base)
+        kind = i % 8
+        v = {0: u, 1: neg[base.index(u)], 2: None}.get(kind, rng.choice(base))
+        if kind == 3:
+            u = None
+        if kind == 4:
+            u = v = None
+        ps.append(u)
+        qs.append(v)
+
+    def batch(pts):
+        f = curve.fp
+        aff = Affine(f.from_int([0 if t is None else t[0] for t in pts],
+                                device=device),
+                     f.from_int([0 if t is None else t[1] for t in pts],
+                                device=device))
+        return curve.from_affine(aff)
+
+    return batch(ps), batch(qs), ps, qs
+
+
+def aff_ints(curve, pt):
+    aff = curve.to_affine(Jac(*(c.reshape(-1, c.shape[-1]) for c in pt)))
+    xs, ys = (mont.to_int(curve.spec.fp, c) for c in aff)
+    return [None if x == 0 and y == 0 else (x, y) for x, y in zip(xs, ys)]
+
+
+@pytest.mark.cuda
+def test_exp_const_kernel_matches_plain(cuda):
+    x = mont.from_int(SPEC, rand_vals(300, 5), device=cuda)
+    for e in (Q - 2, 3, (Q - 1) // 2, 0, 1 << 300):
+        before = exp.exp_const.launches
+        got = exp.exp_const(SPEC, x, e)
+        assert exp.exp_const.launches == before + 1
+        assert torch.equal(got, exp.exp_const_plain(SPEC, x, e))
+    assert mont.to_int(SPEC, mont.inverse(SPEC, x[:8])) == [
+        pow(v, Q - 2, Q) for v in rand_vals(8, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CURVES)
+def test_jac_add_double_kernels_match_plain(cuda, name):
+    curve = curve_ops(cs.get_curve(name))
+    fp, a = curve.spec.fp, curve.spec.a
+    P, Qb, ps, qs = edge_batches(curve, 1027, 1, cuda)
+    before = (point_add.jac_add.launches, point_add.jac_double.launches)
+    got = point_add.jac_add(fp, a, *P, *Qb)
+    dbl = point_add.jac_double(fp, a, *P)
+    assert (point_add.jac_add.launches, point_add.jac_double.launches) == (
+        before[0] + 1, before[1] + 1)
+    for k, w in zip(got, point_add.jac_add_plain(fp, a, *P, *Qb)):
+        assert torch.equal(k, w)
+    for k, w in zip(dbl, point_add.jac_double_plain(fp, a, *P)):
+        assert torch.equal(k, w)
+    p_mod, a_mod = fp.modulus, a % fp.modulus
+    assert aff_ints(curve, Jac(*(c[:64] for c in got))) == [
+        oracle_add(u, v, p_mod, a_mod) for u, v in zip(ps[:64], qs[:64])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CURVES)
+def test_affine_level_kernels_match_plain(cuda, name):
+    curve = curve_ops(cs.get_curve(name))
+    fp, a = curve.spec.fp, curve.spec.a
+    P, Qb, _, _ = edge_batches(curve, 2051, 2, cuda)
+    L, R = curve.to_affine(P), curve.to_affine(Qb)
+    den, num, bits = point_add.affine_prep(fp, a, *L, *R)
+    wd, wn, wb = point_add.affine_prep_plain(fp, a, *L, *R)
+    assert torch.equal(den, wd) and torch.equal(num, wn)
+    assert torch.equal(bits, wb)
+    dinv = pippenger._log_batch_inverse(curve.fp, den)
+    tb = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 8, size=(den.shape[0],)).astype(np.int32)).to(cuda)
+    args = (*R, *L, *R, *L, num, dinv, bits, tb)
+    for k, w in zip(point_add.affine_finish(fp, a, *args),
+                    point_add.affine_finish_plain(fp, a, *args)):
+        assert torch.equal(k, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CURVES)
+def test_fold_kernel_matches_plain(cuda, name):
+    curve = curve_ops(cs.get_curve(name))
+    fp, a = curve.spec.fp, curve.spec.a
+    T, _, _, _ = edge_batches(curve, 20, 4, cuda)
+    before = point_add.jac_fold_windows.launches
+    got = point_add.jac_fold_windows(fp, a, *T, 13)
+    assert point_add.jac_fold_windows.launches == before + 1
+    for k, w in zip(got, point_add.jac_fold_windows_plain(fp, a, *T, 13)):
+        assert torch.equal(k, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CURVES)
+def test_msm_2e12_matches_identity(cuda, name):
+    """msm([i+1]G, s) == [sum s_i (i+1) mod r]G, compared as affine ints."""
+    curve = curve_ops(cs.get_curve(name))
+    p, a = curve.spec.fp.modulus, curve.spec.a % curve.spec.fp.modulus
+    r = curve.spec.fr.modulus
+    n = 1 << 12
+    g = curve.generator_jac(device=cuda)
+    G = Jac(*(c.expand(n, -1) for c in g))
+    ks = curve.fr.from_int(list(range(1, n + 1)), mont=False, device=cuda)
+    pts = curve.to_affine(curve.scalar_mul(G, ks, nbits=13))
+    rng = random.Random(n)
+    ss = [rng.randrange(r) for _ in range(n)]
+    got = pippenger.msm(curve.spec, pts, curve.fr.from_int(
+        ss, mont=False, device=cuda))
+    total = sum(s * (i + 1) for i, s in enumerate(ss)) % r
+    assert aff_ints(curve, got) == [oracle_mul(
+        (curve.spec.gx % p, curve.spec.gy % p), total, p, a)]
+
+
+@pytest.mark.cuda
+def test_point_kernels_reject(cuda):
+    curve = curve_ops(cs.get_curve("bn254_g1"))
+    P, _, _, _ = edge_batches(curve, 8, 5, cuda)
+    fp = curve.spec.fp
+    with pytest.raises(ValueError):
+        point_add.jac_add(fp, 0, *P, P.x[:4], P.y[:4], P.z[:4])
+    with pytest.raises(ValueError):
+        point_add.jac_double(fp, 0, P.x[::2], P.y[::2], P.z[::2])
+    with pytest.raises(ValueError):
+        point_add.affine_finish(fp, 0, *([P.x] * 10),
+                                torch.zeros(8, dtype=torch.int64,
+                                            device=cuda),
+                                torch.zeros(8, dtype=torch.int32,
+                                            device=cuda))
+    bls = curve_ops(cs.get_curve("bls12_381_g1"))  # 12-word Fp
+    with pytest.raises(NotImplementedError):
+        bls.double(bls.generator_jac(device=cuda))

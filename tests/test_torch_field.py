@@ -173,6 +173,41 @@ def test_mont_mul_matches_jax_pallas_interpret():
     assert tmont.to_int(t, got) == [u * v % j.modulus for u, v in zip(a, b)]
 
 
+@pytest.mark.parametrize("which", ["inverse", "cube", "legendre"])
+def test_exp_const_matches_jax_pallas_interpret(which):
+    """The plain ladder of field/exp.py against the TPU kernel in interpret
+    mode (tests/test_pallas_kernels.py:46), 0 -> 0 included."""
+    from gnark_crypto_tpu.field.pallas.exp import exp_const_pallas
+    from gnark_crypto_tpu_torch.field import exp
+
+    j, t = jfs.BN254_FR, tfs.BN254_FR
+    q = j.modulus
+    e = {"inverse": q - 2, "cube": 3, "legendre": (q - 1) // 2}[which]
+    vals = rand_vals(q, 8, 7)
+    jx = jmont.from_int(j, vals)
+    want = exp_const_pallas(j, jx, e, interpret=True)
+    got = exp.exp_const(t, convert.from_jax_limbs(t, np.asarray(jx),
+                                                  device=CPU), e)
+    assert jmont.to_int(j, want) == tmont.to_int(t, got)
+    assert tmont.to_int(t, got) == [pow(v, e, q) for v in vals]
+
+
+def test_exp_const_entry_points():
+    """mont.exp_const keeps the batch shape; e = 0 gives one, as in the JAX
+    engine; inverse maps 0 -> 0."""
+    t = tfs.BN254_FP
+    q = t.modulus
+    x = tmont.from_int(t, [0, 2, q - 1, 5], device=CPU).reshape(2, 2, 8)
+    assert tmont.exp_const(t, x, 0).shape == (2, 2, 8)
+    assert tmont.to_int(t, tmont.exp_const(t, x, 0).reshape(-1, 8)) == [1] * 4
+    assert tmont.to_int(t, tmont.inverse(t, x).reshape(-1, 8)) == [
+        0, pow(2, -1, q), q - 1, pow(5, -1, q)]
+    assert tmont.to_int(t, tmont.exp_const(t, x[1, 0], 1 << 300)) == pow(
+        q - 1, 1 << 300, q)
+    with pytest.raises(ValueError):
+        tmont.exp_const(t, x, -1)
+
+
 def test_spec_word_constants():
     for name in NAMES:
         t, j = tfs.get_field(name), jfs.get_field(name)

@@ -211,6 +211,9 @@ def test_port_imports_without_jax():
     mods = sorted(
         ".".join(p.relative_to(root).with_suffix("").parts)
         for p in (root / "gnark_crypto_tpu_torch").rglob("*.py"))
+    assert {f"gnark_crypto_tpu_torch.{m}" for m in (
+        "specs.curve", "field.exp", "field.point_add", "curve.jacobian",
+        "msm.pippenger", "convert")} <= set(mods)
     code = ("import sys\nsys.modules['jax'] = None\n"
             "sys.modules['gnark_crypto_tpu'] = None\n"
             "import importlib\n"
