@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``gnark_crypto_tpu_torch/csrc`` (nvcc, sm_90a),
-then drives the port's two ported paths through their public entry points
-and holds every result and every kernel against the plain PyTorch versions
-on the same card, bit for bit (the field is exact: the tolerance is 0):
+then drives the port's three ported paths through their public entry
+points and holds every result and every kernel against the plain PyTorch
+versions on the same card, bit for bit (the field is exact: the tolerance
+is 0):
 
 * the bn254 Fr NTT (``Domain``, ``fft``, ``fft_inverse``, ``mont.mul``) at
   2^20 and 2^24 elements;
@@ -14,7 +15,13 @@ on the same card, bit for bit (the field is exact: the tolerance is 0):
   ``batch_scalar_mul``): points [i+1]G for i < 2^16 by a 17-bit ladder,
   tiled to 2^20 and 2^24, random canonical scalars, MSMs at 2^16, 2^20 and
   2^24, ``batch_scalar_mul`` at 2^16, and a 2^12 ``stark_g1`` MSM (a = 1)
-  so that the a != 0 branches of the kernels launch.
+  so that the a != 0 branches of the kernels launch;
+* the bn254 pairing (``pairing.api.pair``/``pairing_check`` on the VM
+  kernel): 2048 pairs P_i = [a_i]G1 (``batch_scalar_mul``), Q_i = [b_i]G2
+  (``g2_curve`` scalar mul), lane 0 infinite and the last lane
+  (-sum a_i b_i G1, G2), so the product is 1; the same with one scalar
+  changed; a batch-2 check in the KZG-verify shape; e(G1, G2) and
+  e([5]G1, [7]G2) against the golden gnark bytes.
 
 Phases:
 
@@ -26,11 +33,16 @@ Phases:
    MSM); each transform against the plain radix-2 stages, round trips and
    Python-integer samples; each MSM against msm([k_i]G, s) =
    [sum s_i k_i mod r]G, a 2^8 random-point MSM against a Python-int curve
-   oracle, and ``batch_scalar_mul`` lanes against Python integers;
+   oracle, and ``batch_scalar_mul`` lanes against Python integers; each
+   pairing against the golden bytes or its expected check; the VM kernel
+   on the 2048-pair chain's ``product`` launch and on a random program of
+   all six ops;
 3. timing with CUDA events: each kernel, its plain version and its bound
    (bytes over 3.35 TB/s, or 32-bit multiply-adds over the INT32 rate,
    whichever is larger); whole transforms; the 2^20 MSM split into its
-   steps (host clock, synchronised after each).
+   steps (host clock, synchronised after each); each VM program launch of
+   the pairing path beside its serial product count; pairs/s at 2048 and
+   the batch-2 ``pairing_check`` latency (host clock, synchronised).
 
 Prints the card's name and power limit, the build time, a ``timings`` JSON
 line, a ``kernels`` JSON line and, last, the device line. Exits non-zero,
@@ -44,6 +56,7 @@ import random
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth; the INT32 rate
 # is 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7e12 multiply-adds/s,
@@ -482,6 +495,209 @@ class MsmSlice:
 
 
 
+class PairingSlice:
+    """The bn254 pairing path: inputs, main path, checks and timings."""
+
+    KERNELS = ("vm_execute", "mont_mul", "exp_const", "jac_add",
+               "jac_double")
+    NAME = "bn254"
+    # gnark GT bytes of e(G1, G2) and e([5]G1, [7]G2), from the independent
+    # oracle tests/gt_oracle.py
+    GOLDEN = Path(__file__).resolve().parent / "tests/fixtures/gt_golden.json"
+
+    def __init__(self, dev, nprng, n: int = 2048):
+        import torch
+
+        from gnark_crypto_tpu_torch.curve.g2 import g2_curve
+        from gnark_crypto_tpu_torch.curve.jacobian import curve_ops
+        from gnark_crypto_tpu_torch.field import vm
+        from gnark_crypto_tpu_torch.pairing import api, vm_pairing
+        from gnark_crypto_tpu_torch.specs import curve as cs
+
+        self.torch, self.dev, self.nprng, self.n = torch, dev, nprng, n
+        self.vm, self.api, self.vp = vm, api, vm_pairing
+        self.spec = cs.get_curve(f"{self.NAME}_g1")
+        self.g1 = curve_ops(self.spec)
+        self.g2 = g2_curve(self.NAME, dev)
+        self.r = self.spec.fr.modulus
+        self.rec = Recorder(vm, "vm_execute", keep_all=True)
+        with open(self.GOLDEN) as f:
+            self.golden = json.load(f)[self.NAME]
+
+    # -- inputs --------------------------------------------------------------
+    def g1_mul(self, ks):
+        """[k]G1 for Python-int k (mod r) by the ported batch_scalar_mul;
+        affine, k = 0 gives infinity."""
+        from gnark_crypto_tpu_torch.msm import pippenger as pp
+
+        s = self.g1.fr.from_int([k % self.r for k in ks], mont=False,
+                                device=self.dev)
+        g = self.g1.generator_affine(device=self.dev)
+        return self.g1.to_affine(pp.batch_scalar_mul(self.spec, g, s))
+
+    def g2_mul(self, ks):
+        """[k]G2 for Python-int k by the G2 curve's scalar_mul; affine."""
+        g2 = self.g2
+        Q = g2.generator_jac(device=self.dev)
+        s = g2.fr.from_int([k % self.r for k in ks], mont=False,
+                           device=self.dev)
+        n = len(ks)
+        return g2.to_affine(g2.scalar_mul(
+            type(Q)(*(c.expand(n, -1, -1) for c in Q)), s))
+
+    def gt_hex(self, z) -> str:
+        from gnark_crypto_tpu_torch.io import gt_bytes
+
+        return gt_bytes.gt_to_bytes(self.NAME, z)[0].hex()
+
+    # -- phase 1 -------------------------------------------------------------
+    def main_path(self):
+        """Inputs, then every pairing of the path; returns the seconds."""
+        torch, api, name = self.torch, self.api, self.NAME
+        from gnark_crypto_tpu_torch.curve.jacobian import Affine
+
+        self.rec.install()
+        self.rec.on = True
+        t0 = time.perf_counter()
+        rng = random.Random(SEED + 4)
+        n = self.n
+        # lane 0: infinite P; the last lane cancels the rest
+        a = [0] + [rng.randrange(1, self.r) for _ in range(n - 2)]
+        b = [rng.randrange(1, self.r) for _ in range(n - 1)]
+        a.append(-sum(x * y for x, y in zip(a, b)) % self.r)
+        b.append(1)
+        # then the batch-2 KZG-verify shape and the golden pairs: one ladder
+        # for every G1 input and one for every G2 input
+        ka, kb = rng.randrange(1, self.r), rng.randrange(1, self.r)
+        P_all = self.g1_mul(a + [ka, -ka * kb, 1, 5])
+        Q_all = self.g2_mul(b + [kb, 1, 1, 7])
+        torch.cuda.synchronize()
+        self.inputs_s = time.perf_counter() - t0
+
+        def rows(pt, i, j):
+            return type(pt)(*(c[i:j] for c in pt))
+
+        self.P, self.Q = rows(P_all, 0, n), rows(Q_all, 0, n)
+        P2, Q2 = rows(P_all, n, n + 2), rows(Q_all, n, n + 2)
+        self.gt = {key: api.pair(name, rows(P_all, i, i + 1),
+                                 *rows(Q_all, i, i + 1))
+                   for key, i in (("generator", n + 2), ("p5_q7", n + 3))}
+        self.check_big = api.pairing_check(name, self.P, *self.Q)
+        tampered = self.g1_mul([a[1] + 1])
+        Pt = Affine(*(torch.cat([c[:1], t, c[2:]])
+                      for c, t in zip(self.P, tampered)))
+        self.check_tampered = api.pairing_check(name, Pt, *self.Q)
+        self.P2, self.Q2 = P2, Q2
+        self.check_kzg = api.pairing_check(name, P2, *Q2)
+        torch.cuda.synchronize()
+        self.rec.on = False
+        self.rec.remove()
+        self.calls = self.rec.calls
+        return time.perf_counter() - t0
+
+    # -- phase 2 -------------------------------------------------------------
+    def checks(self, compare, check):
+        import numpy as np
+
+        vm, vp = self.vm, self.vp
+        for key, z in self.gt.items():
+            check(self.gt_hex(z) == self.golden[key],
+                  f"pair {key} on the card == golden gnark GT bytes")
+        check(bool(self.check_big), f"pairing_check over {self.n} pairs "
+              "(lane 0 infinite, last lane -sum a_i b_i G1) is True")
+        check(not bool(self.check_tampered),
+              f"pairing_check over {self.n} pairs, one scalar changed, "
+              "is False")
+        check(bool(self.check_kzg), "pairing_check at batch 2 "
+              "(aG1, bG2), (-abG1, G2) is True")
+        progs = [prog.n_instrs for prog, _ in self.calls]
+        want = [vp.build_program(self.NAME, v).n_instrs for v in
+                ("full", "full", "miller", "product", "reduce", "miller",
+                 "product", "reduce", "full")]
+        check(progs == want, f"vm_execute programs on the path: {progs}")
+        # the kernel against its plain version: the product fold of the
+        # 2048-pair chain, and a random program of all six ops
+        prod = next(c for c in self.calls
+                    if c[0] is vp.build_program(self.NAME, "product"))
+        compare("vm_execute", vm.vm_execute(*prod),
+                vm.vm_execute_plain(*prod),
+                f"product program, {prod[1].shape[1]} lanes")
+        rand = vm.random_program(self.spec.fp, 2900, seed=SEED)
+        n_pad = 4 * rand.tile
+        state = vm._entry_consts(rand, str(self.dev))[:, None, :].repeat(
+            1, n_pad, 1)
+        vals = self.nprng.integers(0, 1 << 32, size=(len(
+            rand.entry_inputs), n_pad, 8), dtype=np.uint32)
+        vals[..., -1] %= self.spec.fp.q_words[-1]
+        edges = self.g1.fp.from_int([0, 1, self.spec.fp.modulus - 1],
+                                    device=self.dev)
+        for i, (reg, _) in enumerate(rand.entry_inputs):
+            state[reg] = self.torch.from_numpy(vals[i].view(np.int32)).to(
+                self.dev)
+            state[reg, :3] = edges
+        compare("vm_execute", vm.vm_execute(rand, state),
+                vm.vm_execute_plain(rand, state),
+                f"random program of {rand.n_instrs} rows "
+                f"{rand.op_counts()}, {n_pad} lanes")
+
+    # -- phase 3 -------------------------------------------------------------
+    def timings(self, cuda_ms, timings, kernel_rows):
+        import numpy as np
+
+        torch, api, vm, vp = self.torch, self.api, self.vm, self.vp
+        name = self.NAME
+        mm = MADS_PER_MONT_MUL
+        labels = {vp.build_program(name, v): v for v in
+                  ("full", "miller", "product", "reduce")}
+        seen = set()
+        for prog, state in self.calls:
+            variant = labels[prog]
+            lanes = state.shape[1]
+            if (variant, lanes) in seen:
+                continue
+            seen.add((variant, lanes))
+            n_mul = prog.op_counts()["MUL"]
+            nbytes = (state.numel() * 4 + prog.n_instrs * 16
+                      + len(prog.out_regs) * (4 + lanes * ELEM_BYTES))
+            b_ms, b_by = bound(nbytes, mm * n_mul * lanes)
+            row = {"ms": cuda_ms(lambda: vm.vm_execute(prog, state),
+                                 reps=2, rounds=3),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "serial_products": n_mul, "instructions": prog.n_instrs,
+                   "registers": prog.n_regs, "lanes": lanes,
+                   "blocks": lanes // prog.tile}
+            if variant == "product":
+                row["plain_ms"] = cuda_ms(
+                    lambda: vm.vm_execute_plain(prog, state), reps=1,
+                    rounds=1)
+                kernel_rows["vm_execute"] = row
+            timings[f"vm_execute {variant} {lanes} lanes"] = row
+
+        def host_s(fn, rounds=3):
+            fn()
+            torch.cuda.synchronize()
+            per = []
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                per.append(time.perf_counter() - t0)
+            return float(np.median(per))
+
+        before = vm.vm_execute.launches
+        api.pair(name, self.P, *self.Q)
+        launches = vm.vm_execute.launches - before
+        s = host_s(lambda: api.pair(name, self.P, *self.Q))
+        timings[f"pair bn254 {self.n}"] = {
+            "s": s, "pairs_per_s": self.n / s,
+            "vm_launches_per_pair": launches}
+        s2 = host_s(lambda: bool(api.pairing_check(name, self.P2, *self.Q2)),
+                    rounds=5)
+        timings["pairing_check bn254 batch 2"] = {"s": s2}
+        timings["pairing inputs (G1 batch_scalar_mul, G2 scalar_mul, "
+                f"{self.n} lanes)"] = {"s": self.inputs_s}
+
+
 def main() -> int:
     import torch
 
@@ -490,7 +706,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from gnark_crypto_tpu_torch.field import kernels, mont
+    from gnark_crypto_tpu_torch.field import kernels, mont, vm
     from gnark_crypto_tpu_torch.ntt import fft, four_step, radix2
     from gnark_crypto_tpu_torch.ntt.domain import Domain, bitrev_perm
     from gnark_crypto_tpu_torch.specs import field as fs
@@ -521,12 +737,14 @@ def main() -> int:
         return torch.from_numpy(w.view(np.int32)).to(dev)
 
     msm = MsmSlice(dev, nprng)
+    pairing = PairingSlice(dev, nprng)
     ntt_kernels = ("mont_mul", "ntt_radix2_stage", "ntt_radix2_block",
                    "ntt_four_step")
     wrappers = {"mont_mul": kernels.mont_mul,
                 "ntt_radix2_stage": radix2.stage,
                 "ntt_radix2_block": radix2.block,
-                "ntt_four_step": four_step.sub_ntt, **msm.wrappers}
+                "ntt_four_step": four_step.sub_ntt, **msm.wrappers,
+                "vm_execute": vm.vm_execute}
 
     def drive(path: str, run, kernel_names) -> dict:
         """Counts to 0, the path, counts read: {kernel: launches}."""
@@ -578,8 +796,9 @@ def main() -> int:
     xy = dom20 = back20 = back20c = back20r = dom24 = f24 = back24 = None
     ntt_counts = drive("NTT", ntt_path, ntt_kernels)
     msm_counts = drive("MSM", msm.main_path, msm.KERNELS)
+    pair_counts = drive("pairing", pairing.main_path, pairing.KERNELS)
     launches = {name: ntt_counts[name] + msm_counts[name]
-                for name in wrappers}
+                + pair_counts[name] for name in wrappers}
 
     # ---------------------------------------------------------------- phase 2
     err = {name: 0 for name in wrappers}
@@ -684,6 +903,7 @@ def main() -> int:
               == acc, f"2^20 DIF output at frequency {i} == Horner sum")
 
     msm.checks(compare, check)
+    pairing.checks(compare, check)
 
     # ---------------------------------------------------------------- phase 3
     def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
@@ -774,6 +994,7 @@ def main() -> int:
         del b
 
     msm.timings(cuda_ms, timings, kernel_rows)
+    pairing.timings(cuda_ms, timings, kernel_rows)
 
     kernel_line = []
     sources = {
@@ -797,6 +1018,8 @@ def main() -> int:
                           "gnark_crypto_tpu/field/pallas/point_add.py:329"),
         "jac_fold_windows": ("gnark_crypto_tpu_torch/csrc/point_add.cu",
                              "gnark_crypto_tpu/field/pallas/point_add.py:421"),
+        "vm_execute": ("gnark_crypto_tpu_torch/csrc/vm.cu",
+                       "gnark_crypto_tpu/field/pallas/vm.py:354"),
     }
     for name in wrappers:
         r = kernel_rows[name]

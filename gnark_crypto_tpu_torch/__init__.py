@@ -9,11 +9,18 @@ entry point runs where its input tensor lives; constructors default to
 
 Ported so far (see ROADMAP.md for the rest):
   specs/      field and curve constant registries
-  field/      Montgomery word engine; mont_mul, exp_const and point kernels
+  field/      Montgomery word engine; mont_mul, exp_const, point and VM
+              kernels (field/vm.py: the straight-line program executor)
   ntt/        radix-2 domains, radix-2 and four-step NTT kernels
-  curve/      G1 group law in Jacobian coordinates
+  curve/      Jacobian group law (G1 on the point kernels; G2 over Fp2 in
+              curve/g2.py); GLV scalar splitting (curve/glv.py)
   msm/        G1 Pippenger MSM (batch-affine bucket tree)
-  convert.py  JAX limb arrays and points <-> port word tensors
+  towers/     Fp2/Fp6/Fp12 extension engines, the BN/BLS12 tower and its
+              symbolic twin that assembles VM programs
+  pairing/    bn254/bls12 optimal ate pairing as VM programs; the api facade
+  io/         gnark GT byte codec
+  convert.py  JAX limb arrays (elements, extension elements, points) <->
+              port word tensors
 """
 
 # curve ID registry (ecc.ID analogue)
@@ -22,8 +29,8 @@ CURVES = (
     "bw6_633", "bw6_761", "grumpkin", "secp256k1", "secp256r1", "stark",
 )
 
-# The curve families of the reference. This package has G1 and its MSM;
-# pairings and G2 come with later slices (ROADMAP.md queue 1).
+# The curve families of the reference. This package pairs the BN/BLS12
+# families; BLS24 and BW6 come with a later slice (ROADMAP.md queue 1).
 PAIRING_CURVES = (
     "bn254", "bls12_381", "bls12_377", "bls24_315", "bls24_317",
     "bw6_761", "bw6_633",

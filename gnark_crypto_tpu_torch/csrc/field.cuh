@@ -96,6 +96,26 @@ __device__ __forceinline__ Elem sub_mod(const Elem& a, const Elem& b,
   return d;
 }
 
+// a / 2 mod q (q odd): (a + q) / 2 for odd a, a / 2 for even a, with the
+// carry out of a + q shifted back in. Input < q; output canonical.
+__device__ __forceinline__ Elem halve_mod(const Elem& a,
+                                          const FieldConst& fc) {
+  const uint32_t odd = a.w[0] & 1u;
+  Elem t;
+  uint32_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const uint64_t s = (uint64_t)a.w[i] + (odd ? fc.q[i] : 0u) + carry;
+    t.w[i] = (uint32_t)s;
+    carry = (uint32_t)(s >> 32);
+  }
+  Elem r;
+#pragma unroll
+  for (int i = 0; i < W - 1; ++i) r.w[i] = (t.w[i] >> 1) | (t.w[i + 1] << 31);
+  r.w[W - 1] = (t.w[W - 1] >> 1) | (carry << 31);
+  return r;
+}
+
 // a * b * 2^-256 mod q (CIOS). Inputs < q; output canonical.
 __device__ __forceinline__ Elem mont_mul(const Elem& a, const Elem& b,
                                          const FieldConst& fc) {

@@ -1,19 +1,24 @@
 """Short-Weierstrass group law in Jacobian coordinates, batched over points.
 
-Counterpart of ``gnark_crypto_tpu/curve/jacobian.py`` for G1 (curves over a
-prime field): the same EFD formulas (add-2007-bl, madd-2007-bl,
-dbl-2009-l; reference ``g1.go:332,428,519``) with every data-dependent
-branch (infinity, P == Q, P == -Q) a masked select. Infinity is Z = 0,
-encoded as all-zero (0, 0, 0) in Jacobian and (0, 0) in affine coordinates.
+Counterpart of ``gnark_crypto_tpu/curve/jacobian.py``: the same EFD
+formulas (add-2007-bl, madd-2007-bl, dbl-2009-l; reference
+``g1.go:332,428,519``) with every data-dependent branch (infinity,
+P == Q, P == -Q) a masked select. Infinity is Z = 0, encoded as all-zero
+(0, 0, 0) in Jacobian and (0, 0) in affine coordinates.
 
-A point is a NamedTuple of ``int32[..., W]`` coordinate tensors
-(Montgomery words, ``field/mont.py``); scalars are plain (non-Montgomery)
-Fr words. :meth:`Curve.add` and :meth:`Curve.double` go to the ``jac_add``
-and ``jac_double`` kernels for CUDA tensors at every batch size, and to
-their plain versions for CPU tensors (``field/point_add.py``). A curve
-whose field the kernels refuse (12-word bls12 Fp, say) raises on CUDA, as
-``mont.mul`` does. ``add_mixed`` has no kernel and stays composed of field
-ops, as in the JAX package.
+A point is a NamedTuple of coordinate tensors: ``int32[..., W]``
+Montgomery words (``field/mont.py``) over a prime field, or extension
+elements (``int32[..., 2, W]`` over Fp2) when the curve is built over an
+extension engine (``Curve(spec, fp_eng)``, the G2 groups of
+``curve/g2.py``). Scalars are plain (non-Montgomery) Fr words.
+
+Over a prime field, :meth:`Curve.add` and :meth:`Curve.double` go to the
+``jac_add`` and ``jac_double`` kernels for CUDA tensors at every batch
+size, and to their plain versions for CPU tensors (``field/point_add.py``).
+A curve whose field the kernels refuse (12-word bls12 Fp, say) raises on
+CUDA, as ``mont.mul`` does. Over an extension, and for ``add_mixed``
+everywhere, the group law stays composed of field ops, as in the JAX
+package; on the card those ops launch ``mont_mul``.
 """
 
 from __future__ import annotations
@@ -55,14 +60,39 @@ def _flat(coords, W: int):
              for c in coords], shape)
 
 
-class Curve:
-    """Binds a G1 CurveSpec to its fp/fr engines and exposes the group ops."""
+def _flat_ints(v):
+    if isinstance(v, tuple):
+        for c in v:
+            yield from _flat_ints(c)
+    else:
+        yield v
 
-    def __init__(self, spec: CurveSpec):
+
+class Curve:
+    """Binds a CurveSpec to its fp/fr engines and exposes the group ops.
+
+    ``fp_eng`` may be an extension engine (``towers/engine.py``): that is
+    how G2 (a curve over Fp2) reuses this code, with tuple-valued a, b, gx
+    and gy in the spec.
+    """
+
+    def __init__(self, spec: CurveSpec, fp_eng=None):
         self.spec = spec
-        self.fp: FieldEngine = for_spec(spec.fp)
+        self.fp = fp_eng if fp_eng is not None else for_spec(spec.fp)
         self.fr: FieldEngine = for_spec(spec.fr)
-        self.a_is_zero = spec.a % spec.fp.modulus == 0
+        self.a_is_zero = all(c % spec.fp.modulus == 0
+                             for c in _flat_ints(spec.a))
+        # the point kernels take curves over the prime field itself; over
+        # an extension (G2, a = 0 on every pairing curve) the group law is
+        # composed of field ops
+        self._kernels = isinstance(self.fp, FieldEngine)
+        if not (self._kernels or self.a_is_zero):
+            raise NotImplementedError(
+                f"{spec.name}: a != 0 over an extension field")
+
+    def _select(self, cond: torch.Tensor, a, b):
+        """cond ? a : b coordinate by coordinate (cond: element shape)."""
+        return type(a)(*(self.fp.where(cond, xa, xb) for xa, xb in zip(a, b)))
 
     # -- constructors -------------------------------------------------------
     def const_affine(self, x: int, y: int, device=DEFAULT_DEVICE) -> Affine:
@@ -127,7 +157,7 @@ class Curve:
         if len(lead) == 0:
             zinv = f.inverse(p.z)
         else:
-            zinv = f.batch_inverse(p.z.reshape(-1, p.z.shape[-1])
+            zinv = f.batch_inverse(p.z.reshape(-1, *p.z.shape[len(lead):])
                                    ).reshape(p.z.shape)
         zinv2 = f.square(zinv)
         x = f.mul(p.x, zinv2)
@@ -145,7 +175,10 @@ class Curve:
 
     def double(self, p: Jac) -> Jac:
         """dbl-2009-l (a = 0) / dbl-2007-bl (general a); infinity-safe
-        (reference g1.go:397-424 DoubleAssign). One ``jac_double``."""
+        (reference g1.go:397-424 DoubleAssign). One ``jac_double`` over a
+        prime field."""
+        if not self._kernels:
+            return self._double_composed(p)
         W = self.spec.fp.n_words
         flat, shape = _flat(p, W)
         out = point_add.jac_double(self.spec.fp, self.spec.a, *flat)
@@ -153,11 +186,63 @@ class Curve:
 
     def add(self, p: Jac, q: Jac) -> Jac:
         """Complete masked add-2007-bl (reference g1.go:332 AddAssign),
-        broadcasting the two batches. One ``jac_add``."""
+        broadcasting the two batches. One ``jac_add`` over a prime field."""
+        if not self._kernels:
+            return self._add_composed(p, q)
         W = self.spec.fp.n_words
         flat, shape = _flat((*p, *q), W)
         out = point_add.jac_add(self.spec.fp, self.spec.a, *flat)
         return Jac(*(o.reshape(*shape, W) for o in out))
+
+    def _double_composed(self, p: Jac) -> Jac:
+        """dbl-2009-l (a = 0) in field ops (the JAX package's
+        ``Curve.double``)."""
+        f = self.fp
+        A = f.square(p.x)
+        B = f.square(p.y)
+        C = f.square(B)
+        t = f.square(f.add(p.x, B))
+        D = f.double(f.sub(f.sub(t, A), C))
+        E = f.add(f.double(A), A)  # 3A
+        F = f.square(E)
+        x3 = f.sub(F, f.double(D))
+        eight_c = f.double(f.double(f.double(C)))
+        y3 = f.sub(f.mul(E, f.sub(D, x3)), eight_c)
+        z3 = f.double(f.mul(p.y, p.z))
+        return Jac(x3, y3, z3)
+
+    def _add_composed(self, p: Jac, q: Jac) -> Jac:
+        """Complete masked add-2007-bl in field ops (the JAX package's
+        ``Curve.add``)."""
+        f = self.fp
+        z1z1 = f.square(p.z)
+        z2z2 = f.square(q.z)
+        u1 = f.mul(p.x, z2z2)
+        u2 = f.mul(q.x, z1z1)
+        s1 = f.mul(f.mul(p.y, q.z), z2z2)
+        s2 = f.mul(f.mul(q.y, p.z), z1z1)
+        h = f.sub(u2, u1)
+        i = f.square(f.double(h))
+        j = f.mul(h, i)
+        rr = f.double(f.sub(s2, s1))
+        v = f.mul(u1, i)
+        x3 = f.sub(f.sub(f.square(rr), j), f.double(v))
+        y3 = f.sub(f.mul(rr, f.sub(v, x3)), f.double(f.mul(s1, j)))
+        z3 = f.mul(f.sub(f.sub(f.square(f.add(p.z, q.z)), z1z1), z2z2), h)
+        out = Jac(x3, y3, z3)
+
+        h0 = f.is_zero(h)
+        r0 = f.is_zero(rr)
+        p_inf = self.is_inf_jac(p)
+        q_inf = self.is_inf_jac(q)
+        dbl = self.double(p)
+        zero = torch.zeros_like(x3)
+        out = self._select(h0 & r0, dbl, out)          # P == Q -> double
+        out = self._select(h0 & ~r0 & ~p_inf & ~q_inf,  # P == -Q -> infinity
+                           Jac(zero, zero, zero), out)
+        out = self._select(p_inf, q, out)
+        out = self._select(q_inf, p, out)
+        return out
 
     def add_mixed(self, p: Jac, q: Affine) -> Jac:
         """Complete masked madd-2007-bl (reference g1.go:428 AddMixed)."""
@@ -181,11 +266,11 @@ class Curve:
         p_inf = self.is_inf_jac(p)
         q_inf = self.is_inf_affine(q)
         dbl = self.double(p)
-        out = _sel(h0 & r0 & ~p_inf, dbl, out)
+        out = self._select(h0 & r0 & ~p_inf, dbl, out)
         zero = torch.zeros_like(x3)
-        out = _sel(h0 & ~r0 & ~p_inf, Jac(zero, zero, zero), out)
-        out = _sel(p_inf, self.from_affine(q), out)
-        out = _sel(q_inf, p, out)
+        out = self._select(h0 & ~r0 & ~p_inf, Jac(zero, zero, zero), out)
+        out = self._select(p_inf, self.from_affine(q), out)
+        out = self._select(q_inf, p, out)
         return out
 
     # -- scalar multiplication ---------------------------------------------
@@ -209,7 +294,7 @@ class Curve:
         for row, any_set in zip(bits, bits.reshape(len(bits), -1).amax(1).tolist()):
             acc = self.double(acc)
             if any_set:
-                acc = _sel(row == 1, self.add(acc, p), acc)
+                acc = self._select(row == 1, self.add(acc, p), acc)
         return acc
 
     def joint_scalar_mul(self, p: Jac, q: Jac, k1: torch.Tensor,
@@ -225,8 +310,8 @@ class Curve:
         for r1, r2, a1, a2 in zip(b1, b2, any1, any2):
             acc = self.double(acc)
             if a1 or a2:
-                acc = _sel(r1 == 1, self.add(acc, p), acc)
-                acc = _sel(r2 == 1, self.add(acc, q), acc)
+                acc = self._select(r1 == 1, self.add(acc, p), acc)
+                acc = self._select(r2 == 1, self.add(acc, q), acc)
         return acc
 
 

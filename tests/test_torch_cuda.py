@@ -16,9 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from gnark_crypto_tpu_torch.curve.g2 import g2_curve
 from gnark_crypto_tpu_torch.curve.jacobian import Affine, Jac, curve_ops
 from gnark_crypto_tpu_torch.field import exp, kernels, point_add
-from gnark_crypto_tpu_torch.field import mont
+from gnark_crypto_tpu_torch.field import mont, vm
+from gnark_crypto_tpu_torch.io import gt_bytes
+from gnark_crypto_tpu_torch.pairing import api as pairing_api
 from gnark_crypto_tpu_torch.msm import pippenger
 from gnark_crypto_tpu_torch.ntt import fft, four_step, radix2
 from gnark_crypto_tpu_torch.ntt.domain import Domain
@@ -278,3 +281,56 @@ def test_point_kernels_reject(cuda):
     bls = curve_ops(cs.get_curve("bls12_381_g1"))  # 12-word Fp
     with pytest.raises(NotImplementedError):
         bls.double(bls.generator_jac(device=cuda))
+
+
+@pytest.mark.cuda
+def test_vm_kernel_matches_plain(cuda):
+    """A random program of all six ops over three 32-lane tiles with edge
+    values; the kernel and the plain executor on the same entry rows."""
+    fp = fs.BN254_FP
+    prog = vm.random_program(fp, 2900, seed=17)
+    n_pad = 3 * prog.tile
+    state = vm._entry_consts(prog, str(cuda))[:, None, :].repeat(1, n_pad, 1)
+    for i, (reg, _) in enumerate(prog.entry_inputs):
+        vals = [0, 1, fp.modulus - 1] + [
+            random.Random(i).randrange(fp.modulus) for _ in range(n_pad)]
+        state[reg] = mont.from_int(fp, vals[:n_pad], device=cuda)
+    before = vm.vm_execute.launches
+    got = vm.vm_execute(prog, state)
+    assert vm.vm_execute.launches == before + 1
+    assert torch.equal(got, vm.vm_execute_plain(prog, state))
+
+
+@pytest.mark.cuda
+def test_vm_kernel_rejects(cuda):
+    prog = vm.random_program(fs.BN254_FP, 50, seed=3)
+    state = torch.zeros((prog.n_entry, prog.tile, 8), dtype=torch.int32,
+                        device=cuda)
+    with pytest.raises(ValueError):
+        vm.vm_execute(prog, state.to(torch.int64))
+    with pytest.raises(ValueError):
+        vm.vm_execute(prog, state.transpose(0, 1).contiguous().transpose(0, 1))
+    bls = vm.random_program(fs.BLS12_381_FP, 50, seed=3)  # 12-word Fp
+    with pytest.raises(NotImplementedError):
+        vm.vm_execute(bls, torch.zeros((bls.n_entry, bls.tile, 12),
+                                       dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+def test_pair_on_card_equals_golden(cuda):
+    """e(G1, G2) through the VM kernel (the ``full`` program, one tile)
+    equals the golden gnark bytes."""
+    import json
+    import os
+
+    fix = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "gt_golden.json")
+    with open(fix) as f:
+        want = json.load(f)["bn254"]["generator"]
+    g1 = curve_ops(cs.get_curve("bn254_g1")).generator_affine(device=cuda)
+    g2 = g2_curve("bn254", cuda).generator_affine(device=cuda)
+    before = vm.vm_execute.launches
+    z = pairing_api.pair("bn254", Affine(g1.x[None], g1.y[None]),
+                         g2.x[None], g2.y[None])
+    assert vm.vm_execute.launches == before + 1
+    assert gt_bytes.gt_to_bytes("bn254", z)[0].hex() == want
