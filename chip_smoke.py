@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``gnark_crypto_tpu_torch/csrc`` (nvcc, sm_90a),
-then drives the port's three ported paths through their public entry
+then drives the port's five ported paths through their public entry
 points and holds every result and every kernel against the plain PyTorch
 versions on the same card, bit for bit (the field is exact: the tolerance
 is 0):
@@ -21,13 +21,24 @@ is 0):
   (``g2_curve`` scalar mul), lane 0 infinite and the last lane
   (-sum a_i b_i G1, G2), so the product is 1; the same with one scalar
   changed; a batch-2 check in the KZG-verify shape; e(G1, G2) and
-  e([5]G1, [7]G2) against the golden gnark bytes.
+  e([5]G1, [7]G2) against the golden gnark bytes;
+* the bn254 G2 MSM (``g2_curve``, ``batch_scalar_mul``, ``msm`` on the Fp2
+  kernels): points [i+1]G2 for i < 2^16, tiled to 2^20, random canonical
+  scalars, MSMs at 2^16 (c = 11) and 2^20 (c = 13), each against
+  [sum s_i k_i mod r]G2 by one G2 scalar multiplication;
+* bn254 KZG at 2^20 (``protocols.kzg``): an SRS from a seeded alpha,
+  ``commit`` and ``open_poly`` of a random polynomial against
+  [p(alpha)]G1 and [q(alpha)]G1 from host integers, ``verify`` True and,
+  with the claimed value changed, False; ``batch_open_single_point`` of 4
+  polynomials and ``batch_verify_single_point``; and
+  ``batch_verify_multi_points`` over 4 proofs at 4 points, True and, with
+  one proof's H swapped, False.
 
 Phases:
 
 1. each path, with every kernel's launch count set to 0 just before it and
-   read just after (the MSM path's wall time and peak memory per size are
-   taken here);
+   read just after (the MSM paths' wall time and peak memory per size and
+   the KZG calls' wall times are taken here);
 2. checks: each kernel against its plain version at the main path's
    shapes (the MSM kernels on the inputs they received in a second 2^20
    MSM); each transform against the plain radix-2 stages, round trips and
@@ -36,13 +47,16 @@ Phases:
    oracle, and ``batch_scalar_mul`` lanes against Python integers; each
    pairing against the golden bytes or its expected check; the VM kernel
    on the 2048-pair chain's ``product`` launch and on a random program of
-   all six ops;
+   all six ops; the five Fp2 kernels on the inputs they received in a
+   second 2^16 G2 MSM (the fold on its first 4 windows); the KZG results
+   against alpha-oracle points and their expected verdicts;
 3. timing with CUDA events: each kernel, its plain version and its bound
    (bytes over 3.35 TB/s, or 32-bit multiply-adds over the INT32 rate,
-   whichever is larger); whole transforms; the 2^20 MSM split into its
-   steps (host clock, synchronised after each); each VM program launch of
-   the pairing path beside its serial product count; pairs/s at 2048 and
-   the batch-2 ``pairing_check`` latency (host clock, synchronised).
+   whichever is larger); whole transforms; the G1 and G2 MSMs at 2^20
+   split into their steps (host clock, synchronised after each); each VM
+   program launch of the pairing path beside its serial product count;
+   pairs/s at 2048 and the batch-2 ``pairing_check`` latency; each G2 MSM
+   and KZG call (host clock, synchronised).
 
 Prints the card's name and power limit, the build time, a ``timings`` JSON
 line, a ``kernels`` JSON line and, last, the device line. Exits non-zero,
@@ -107,6 +121,30 @@ def oracle_mul(P, k: int, p: int, a: int):
         P = oracle_add(P, P, p, a)
         k >>= 1
     return acc
+
+
+def random_scalars(nprng, spec, n: int, dev):
+    """n canonical plain Fr words of a curve spec (top word below r's, so
+    < r), from the numpy generator."""
+    import numpy as np
+    import torch
+
+    w = nprng.integers(0, 1 << 32, size=(n, spec.fr.n_words), dtype=np.uint32)
+    w[:, -1] %= spec.fr.q_words[-1]
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def weighted_total(s_words, base_n: int, r: int) -> int:
+    """sum_i s_i * ((i mod base_n) + 1) mod r, exactly, on the card: 16-bit
+    halves times k <= 2^16 summed over <= 2^24 lanes < 2^56."""
+    import torch
+
+    n = s_words.shape[0]
+    u = s_words.to(torch.int64) & 0xFFFFFFFF
+    halves = torch.stack([u & 0xFFFF, u >> 16], -1).reshape(n, -1)
+    k = torch.arange(n, device=s_words.device) % base_n + 1
+    sums = (halves * k[:, None]).sum(0).tolist()
+    return sum(v << (16 * j) for j, v in enumerate(sums)) % r
 
 
 def width(args) -> int:
@@ -191,15 +229,6 @@ class MsmSlice:
             stark_log
 
     # -- inputs --------------------------------------------------------------
-    def random_scalars(self, spec, n: int):
-        """n canonical plain Fr words (top word below r's, so < r)."""
-        import numpy as np
-
-        w = self.nprng.integers(0, 1 << 32, size=(n, spec.fr.n_words),
-                                dtype=np.uint32)
-        w[:, -1] %= spec.fr.q_words[-1]
-        return self.torch.from_numpy(w.view(np.int32)).to(self.dev)
-
     def multiples(self, spec, n: int):
         """[i+1]G for i < n by the ladder of the port's API, as affine."""
         from gnark_crypto_tpu_torch.curve.jacobian import Jac, curve_ops
@@ -224,7 +253,8 @@ class MsmSlice:
         t0 = time.perf_counter()
         p16 = self.multiples(self.spec, 1 << self.base_log)
         self.p16 = p16
-        self.s24 = self.random_scalars(self.spec, 1 << self.sizes[-1])
+        self.s24 = random_scalars(self.nprng, self.spec,
+                                  1 << self.sizes[-1], self.dev)
         for k in self.sizes:
             pts = self.tiled(k)
             torch.cuda.synchronize()
@@ -239,7 +269,8 @@ class MsmSlice:
             self.spec, Affine(p16.x[0], p16.y[0]),
             self.s24[:1 << self.base_log])
         self.stark_pts = self.multiples(self.stark, 1 << self.stark_log)
-        self.stark_s = self.random_scalars(self.stark, 1 << self.stark_log)
+        self.stark_s = random_scalars(self.nprng, self.stark,
+                                      1 << self.stark_log, self.dev)
         self.results["stark"] = pp.msm(self.stark, self.stark_pts,
                                        self.stark_s)
         torch.cuda.synchronize()
@@ -257,17 +288,6 @@ class MsmSlice:
         return [None if x == 0 and y == 0 else (x, y)
                 for x, y in zip(xs, ys)]
 
-    def weighted_total(self, s_words, base_n: int, r: int) -> int:
-        """sum_i s_i * ((i mod base_n) + 1) mod r, exactly, on the card:
-        16-bit halves times k <= 2^16 summed over <= 2^24 lanes < 2^56."""
-        torch = self.torch
-        n = s_words.shape[0]
-        u = s_words.to(torch.int64) & 0xFFFFFFFF
-        halves = torch.stack([u & 0xFFFF, u >> 16], -1).reshape(n, -1)
-        k = torch.arange(n, device=self.dev) % base_n + 1
-        sums = (halves * k[:, None]).sum(0).tolist()
-        return sum(v << (16 * j) for j, v in enumerate(sums)) % r
-
     def checks(self, compare, check):
         """Every MSM against the identity and the oracles, then each kernel
         against its plain version on the inputs of a second 2^20 MSM."""
@@ -281,7 +301,7 @@ class MsmSlice:
                 + [(self.stark, "stark", self.stark_s,
                     1 << self.stark_log)]):
             p, a = spec.fp.modulus, spec.a % spec.fp.modulus
-            total = self.weighted_total(scal, base_n, spec.fr.modulus)
+            total = weighted_total(scal, base_n, spec.fr.modulus)
             want = oracle_mul((spec.gx % p, spec.gy % p), total, p, a)
             got = self.affine_ints(curve_ops(spec), self.results[key])
             tag = (f"{spec.name} 2^{key}" if key != "stark"
@@ -446,7 +466,10 @@ class MsmSlice:
                 "s": warm, "points_per_s": (1 << k) / warm,
                 "s_main_path": self.wall[k], "peak_bytes": self.peak[k]}
             del pts
-        timings[f"msm 2^{self.sizes[1]} steps"] = self.split_steps()
+        k20 = self.sizes[1]
+        timings[f"msm 2^{k20} steps"] = msm_steps(
+            pp, lambda: pp.msm(self.spec, self.tiled(k20),
+                               self.s24[:1 << k20]))
 
     def tiled(self, k: int):
         from gnark_crypto_tpu_torch.curve.jacobian import Affine
@@ -454,45 +477,45 @@ class MsmSlice:
         reps = 1 << (k - self.base_log)
         return Affine(self.p16.x.repeat(reps, 1), self.p16.y.repeat(reps, 1))
 
-    def split_steps(self):
-        """The sizes[1] MSM again, each step synchronised and timed."""
-        torch, pp = self.torch, self.pp
-        steps = {"digits": "signed_digits", "sort and gather":
-                 "_sorted_lanes", "phase 1 (affine levels)": "_affine_levels",
-                 "bucket rebuild": "_emitted_to_buckets",
-                 "phase 2 (jacobian levels)": "_jacobian_levels",
-                 "sweep": "_weighted_sweep", "fold": "_fold_windows"}
-        spent = {k: 0.0 for k in steps}
-        saved = {}
 
-        def timed(label, fn):
-            def run(*args):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = fn(*args)
-                torch.cuda.synchronize()
-                spent[label] += time.perf_counter() - t
-                return out
-            return run
+def msm_steps(pp, run):
+    """One MSM by ``run()`` with each step synchronised and timed on the
+    host clock: seconds per step, the rest as "other"."""
+    import torch
 
-        for label, attr in steps.items():
-            saved[attr] = getattr(pp, attr)
-            setattr(pp, attr, timed(label, saved[attr]))
-        k20 = self.sizes[1]
-        pts = self.tiled(k20)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            pp.msm(self.spec, pts, self.s24[:1 << k20])
+    steps = {"digits": "signed_digits", "sort and gather": "_sorted_lanes",
+             "phase 1 (affine levels)": "_affine_levels",
+             "bucket rebuild": "_emitted_to_buckets",
+             "phase 2 (jacobian levels)": "_jacobian_levels",
+             "sweep": "_weighted_sweep", "fold": "_fold_windows"}
+    spent = {k: 0.0 for k in steps}
+    saved = {}
+
+    def timed(label, fn):
+        def call(*args):
             torch.cuda.synchronize()
-        finally:
-            for attr, fn in saved.items():
-                setattr(pp, attr, fn)
-        total = time.perf_counter() - t0
-        spent["other"] = total - sum(spent.values())
-        spent["total"] = total
-        return spent
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            spent[label] += time.perf_counter() - t
+            return out
+        return call
 
+    for label, attr in steps.items():
+        saved[attr] = getattr(pp, attr)
+        setattr(pp, attr, timed(label, saved[attr]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for attr, fn in saved.items():
+            setattr(pp, attr, fn)
+    total = time.perf_counter() - t0
+    spent["other"] = total - sum(spent.values())
+    spent["total"] = total
+    return spent
 
 
 class PairingSlice:
@@ -698,6 +721,359 @@ class PairingSlice:
                 f"{self.n} lanes)"] = {"s": self.inputs_s}
 
 
+class G2MsmSlice:
+    """The bn254 G2 MSM path: inputs, main path, checks and timings."""
+
+    KERNELS = ("exp_const", "affine_prep2", "affine_finish2", "jac_add2",
+               "jac_double2", "jac_fold_windows2")
+    FOLD_WINDOWS = 4   # windows of the fold's plain-version check
+
+    def __init__(self, dev, nprng, base_log: int = 16, sizes=(16, 20)):
+        import torch
+
+        from gnark_crypto_tpu_torch.curve.g2 import g2_curve
+        from gnark_crypto_tpu_torch.field import point_add2
+        from gnark_crypto_tpu_torch.msm import pippenger
+
+        self.torch, self.dev, self.nprng = torch, dev, nprng
+        self.pp, self.pa2 = pippenger, point_add2
+        self.g2 = g2_curve("bn254", dev)
+        self.r = self.g2.spec.fr.modulus
+        self.wrappers = {k: getattr(point_add2, k) for k in self.KERNELS[1:]}
+        self.plain = {k: getattr(point_add2, f"{k}_plain")
+                      for k in self.KERNELS[1:]}
+        self.recorders = [Recorder(point_add2, "jac_fold_windows2",
+                                   keep_all=True)]
+        self.recorders += [Recorder(point_add2, k) for k in
+                           ("jac_add2", "affine_prep2", "affine_finish2")]
+        self.rec = {r.name: r for r in self.recorders}
+        self.results, self.wall, self.peak = {}, {}, {}
+        self.base_log, self.sizes = base_log, sizes
+
+    def tiled(self, k: int):
+        from gnark_crypto_tpu_torch.curve.jacobian import Affine
+
+        reps = 1 << (k - self.base_log)
+        return Affine(self.p16.x.repeat(reps, 1, 1),
+                      self.p16.y.repeat(reps, 1, 1))
+
+    def g2_mul(self, k: int):
+        """[k]G2 by one scalar multiplication of the G2 group law."""
+        from gnark_crypto_tpu_torch.curve.jacobian import Jac
+
+        g2 = self.g2
+        G = Jac(*(c[None] for c in g2.generator_jac(device=self.dev)))
+        return g2.scalar_mul(G, g2.fr.from_int([k % self.r], mont=False,
+                                               device=self.dev))
+
+    # -- phase 1 -------------------------------------------------------------
+    def main_path(self):
+        """Bases [i+1]G2 (i < 2^base_log) by the G2 batch_scalar_mul, then
+        every MSM; returns the seconds."""
+        torch, pp, g2 = self.torch, self.pp, self.g2
+        for r in self.recorders:
+            r.install()
+        self.rec["jac_fold_windows2"].on = True
+        t0 = time.perf_counter()
+        nb = 1 << self.base_log
+        ks = g2.fr.from_int(list(range(1, nb + 1)), mont=False,
+                            device=self.dev)
+        self.p16 = g2.to_affine(pp.batch_scalar_mul(
+            g2, g2.generator_affine(device=self.dev), ks))
+        torch.cuda.synchronize()
+        self.bases_s = time.perf_counter() - t0
+        self.scalars = random_scalars(self.nprng, g2.spec,
+                                      1 << self.sizes[-1], self.dev)
+        for k in self.sizes:
+            pts = self.tiled(k)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            self.results[k] = pp.msm(g2, pts, self.scalars[:1 << k])
+            torch.cuda.synchronize()
+            self.wall[k] = time.perf_counter() - t1
+            self.peak[k] = torch.cuda.max_memory_allocated()
+            del pts
+        self.rec["jac_fold_windows2"].on = False
+        return time.perf_counter() - t0
+
+    # -- phase 2 -------------------------------------------------------------
+    def affine_ints(self, pt):
+        """Affine or Jacobian G2 points -> ((x.re, x.im), (y.re, y.im))
+        canonical ints per point."""
+        from gnark_crypto_tpu_torch.curve.jacobian import Jac
+
+        g2 = self.g2
+        flat = [c.reshape(-1, *c.shape[-2:]) for c in pt]
+        aff = flat if len(flat) == 2 else g2.to_affine(Jac(*flat))
+        xs, ys = (list(zip(*g2.fp.to_int(c))) for c in aff)
+        return list(zip(xs, ys))
+
+    def checks(self, compare, check):
+        """Every MSM against [sum s_i k_i]G2, sampled bases against the
+        ladder, then each kernel against its plain version on the inputs
+        of a second 2^sizes[0] MSM."""
+        torch, pp = self.torch, self.pp
+        nb = 1 << self.base_log
+        lanes = [0, 1, nb - 1]
+        got = self.affine_ints(type(self.p16)(*(c[lanes] for c in self.p16)))
+        want = [self.affine_ints(self.g2_mul(i + 1))[0] for i in lanes]
+        check(got == want,
+              f"G2 batch_scalar_mul bases [i+1]G2 at lanes {lanes}")
+        for k in self.sizes:
+            total = weighted_total(self.scalars[:1 << k], nb, self.r)
+            check(self.affine_ints(self.results[k])
+                  == self.affine_ints(self.g2_mul(total)),
+                  f"msm bn254 G2 2^{k} == [sum s_i k_i]G2 (identity)")
+        for name in ("jac_add2", "affine_prep2", "affine_finish2"):
+            self.rec[name].on = True
+        k0 = self.sizes[0]
+        again = pp.msm(self.g2, self.tiled(k0), self.scalars[:1 << k0])
+        for r_ in self.recorders:
+            r_.on = False
+            r_.remove()
+        check(all(torch.equal(u, v) for u, v in zip(again, self.results[k0])),
+              f"msm G2 2^{k0} run twice: the same Jacobian coordinates")
+        self.kargs = {name: self.rec[name].args for name in
+                      ("jac_add2", "affine_prep2", "affine_finish2")}
+        # the bases' ladder doubles every lane of 2^base_log
+        self.kargs["jac_double2"] = (self.g2.spec.fp, self.g2.fp.nr,
+                                     *self.g2.from_affine(self.p16))
+        folds = self.rec["jac_fold_windows2"].calls
+        # one fold per MSM: sizes in order
+        self.fold_args = {f"2^{k}": folds[i] for i, k in enumerate(self.sizes)}
+        spec, nr, x, y, z, c = folds[0]
+        w = self.FOLD_WINDOWS
+        self.kargs["jac_fold_windows2"] = (spec, nr, x[:w].contiguous(),
+                                           y[:w].contiguous(),
+                                           z[:w].contiguous(), c)
+        for name, args in self.kargs.items():
+            for i, (o, w_) in enumerate(zip(self.wrappers[name](*args),
+                                            self.plain[name](*args))):
+                compare(name, o, w_, f"G2 {width(args)} lanes, output {i}")
+
+    # -- phase 3 -------------------------------------------------------------
+    def bounds(self):
+        """(bytes, multiply-adds) of each kernel's recorded call on its data:
+        an Fp2 element is 64 bytes, an Fp2 product 3 base products."""
+        torch, pa2 = self.torch, self.pa2
+        mm2 = 3 * MADS_PER_MONT_MUL
+        E2 = 2 * ELEM_BYTES
+        out = {}
+        spec, nr, *pts = self.kargs["affine_prep2"]
+        n = pts[0].shape[0]
+        _, _, bits = pa2.affine_prep2(spec, nr, *pts)
+        out["affine_prep2"] = (n * (6 * E2 + 4),
+                               mm2 * int(((bits & 1) != 0).sum()))
+        fargs = self.kargs["affine_finish2"]
+        mb, tb = fargs[12], fargs[13]
+        eq = (tb & 1) != 0
+        generic = eq & ((mb & 14) == 0)     # no INFOUT, PINF or QINF bit
+        n = fargs[2].shape[0]
+        keep_pre = n - int((eq & ((tb & 2) != 0)).sum())
+        keep_suf = n - int((eq & ((tb & 4) != 0)).sum())
+        out["affine_finish2"] = (
+            n * (2 * E2 + 4 + 7 * E2) + int(eq.sum()) * (4 * E2 + 4)
+            + (keep_pre + keep_suf) * 2 * E2,
+            3 * mm2 * int(generic.sum()))
+        spec, nr, *c = self.kargs["jac_add2"]
+        both = ~(torch.all(c[2] == 0, -1).all(-1)
+                 | torch.all(c[5] == 0, -1).all(-1))
+        out["jac_add2"] = (c[0].shape[0] * 9 * E2, 16 * mm2 * int(both.sum()))
+        spec, nr, *c = self.kargs["jac_double2"]
+        out["jac_double2"] = (c[0].shape[0] * 6 * E2,
+                              7 * mm2 * c[0].shape[0])
+        self.fold_serial = {}
+        for tag, args in [("check", self.kargs["jac_fold_windows2"])] + list(
+                self.fold_args.items()):
+            nwin, c_ = args[2].shape[0], args[5]
+            serial = 3 * (c_ * (nwin - 1) * 7 + (nwin - 1) * 16)
+            self.fold_serial[tag] = serial
+            key = ("jac_fold_windows2" if tag == "check"
+                   else f"jac_fold_windows2 {tag}")
+            out[key] = ((3 * nwin + 3) * E2, MADS_PER_MONT_MUL * serial)
+        return out
+
+    def timings(self, cuda_ms, timings, kernel_rows):
+        torch, pp = self.torch, self.pp
+        for name, (nbytes, mads) in self.bounds().items():
+            kname, _, tag = name.partition(" ")
+            args = self.fold_args[tag] if tag else self.kargs[kname]
+            b_ms, b_by = bound(nbytes, mads)
+            row = {"ms": cuda_ms(lambda: self.wrappers[kname](*args),
+                                 reps=5),
+                   "bound_ms": b_ms, "bound_by": b_by, "lanes": width(args)}
+            if kname == "jac_fold_windows2":
+                row["serial_products"] = self.fold_serial[tag or "check"]
+                row["windows"], row["c"] = args[2].shape[0], args[5]
+            if not tag:
+                row["plain_ms"] = cuda_ms(
+                    lambda: self.plain[kname](*args), reps=1, rounds=1)
+                kernel_rows[kname] = row
+            timings[f"{name} G2 {width(args)} lanes"] = row
+        for k in self.sizes:
+            pts = self.tiled(k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pp.msm(self.g2, pts, self.scalars[:1 << k])
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            timings[f"msm bn254 G2 2^{k}"] = {
+                "s": warm, "points_per_s": (1 << k) / warm,
+                "s_main_path": self.wall[k], "peak_bytes": self.peak[k]}
+            del pts
+        timings[f"G2 bases (batch_scalar_mul, 2^{self.base_log} lanes)"] = {
+            "s": self.bases_s}
+        k = self.sizes[-1]
+        timings[f"msm G2 2^{k} steps"] = msm_steps(
+            pp, lambda: pp.msm(self.g2, self.tiled(k), self.scalars[:1 << k]))
+
+
+class KzgSlice:
+    """bn254 KZG end to end: SRS, commit, open, verify and the batch forms,
+    held against alpha-oracle points and tampered inputs."""
+
+    KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double",
+               "affine_prep", "affine_finish", "jac_fold_windows",
+               "vm_execute", "jac_add2", "jac_double2")
+    NAME = "bn254"
+    K = 4   # polynomials of the batch forms
+
+    def __init__(self, dev, nprng, log_n: int = 20):
+        import torch
+
+        from gnark_crypto_tpu_torch.curve.jacobian import curve_ops
+        from gnark_crypto_tpu_torch.protocols import kzg
+        from gnark_crypto_tpu_torch.specs import curve as cs
+
+        self.torch, self.dev, self.nprng, self.kzg = torch, dev, nprng, kzg
+        self.g1 = curve_ops(cs.get_curve(f"{self.NAME}_g1"))
+        self.r = self.g1.spec.fr.modulus
+        self.n = 1 << log_n
+        self.wall = {}
+
+    def timed(self, label, fn):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if isinstance(out, self.torch.Tensor):
+            out = bool(out)
+        self.torch.cuda.synchronize()
+        self.wall.setdefault(label, []).append(time.perf_counter() - t0)
+        return out
+
+    def fr(self, ks):
+        return self.g1.fr.from_int([k % self.r for k in ks], mont=False,
+                                   device=self.dev)
+
+    # -- phase 1 -------------------------------------------------------------
+    def main_path(self):
+        torch, kzg, name, K = self.torch, self.kzg, self.NAME, self.K
+        t0 = time.perf_counter()
+        rng = random.Random(SEED + 5)
+        self.alpha = rng.randrange(2, self.r)
+        self.srs = srs = self.timed("new_srs", lambda: kzg.new_srs(
+            name, self.n, self.alpha, device=self.dev))
+        self.polys = torch.stack([
+            random_scalars(self.nprng, self.g1.spec, self.n, self.dev)
+            for _ in range(K)])
+        self.a = [rng.randrange(self.r) for _ in range(K)]
+        p0, a0 = self.polys[0], self.fr(self.a[:1])
+        self.C = self.timed("commit", lambda: kzg.commit(name, srs.pk, p0))
+        self.proof = self.timed("open_poly", lambda: kzg.open_poly(
+            name, srs.pk, p0, a0))
+        self.ok = self.timed("verify", lambda: kzg.verify(
+            name, self.C, self.proof, a0, srs.vk))
+        bad = kzg.OpeningProof(self.proof.h, self.fr(
+            [self.g1.fr.to_int(self.proof.claimed_value, mont=False)[0]
+             + 1]))
+        self.bad = self.timed("verify", lambda: kzg.verify(
+            name, self.C, bad, a0, srs.vk))
+        self.digests = [self.C] + [kzg.commit(name, srs.pk, self.polys[i])
+                                   for i in range(1, K)]
+        self.bproof = self.timed("batch_open_single_point", lambda:
+                                 kzg.batch_open_single_point(
+                                     name, srs.pk, self.polys, a0,
+                                     self.digests))
+        self.bok = self.timed("batch_verify_single_point", lambda:
+                              kzg.batch_verify_single_point(
+                                  name, self.digests, self.bproof, a0,
+                                  srs.vk))
+        self.proofs = [self.proof] + [kzg.open_poly(
+            name, srs.pk, self.polys[i], self.fr([self.a[i]]))
+            for i in range(1, K)]
+        lam = [1] + [rng.randrange(self.r) for _ in range(K - 1)]
+        pts = [self.fr([a]) for a in self.a]
+        self.mok = self.timed("batch_verify_multi_points", lambda:
+                              kzg.batch_verify_multi_points(
+                                  name, self.digests, self.proofs, pts,
+                                  srs.vk, lambdas=lam))
+        tampered = list(self.proofs)
+        tampered[2] = kzg.OpeningProof(self.proofs[1].h,
+                                       self.proofs[2].claimed_value)
+        self.mbad = self.timed("batch_verify_multi_points", lambda:
+                               kzg.batch_verify_multi_points(
+                                   name, self.digests, tampered, pts,
+                                   srs.vk, lambdas=lam))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # -- phase 2 -------------------------------------------------------------
+    def g1_ints(self, pts):
+        from gnark_crypto_tpu_torch.field import mont
+
+        fp = self.g1.spec.fp
+        return list(zip(mont.to_int(fp, pts.x), mont.to_int(fp, pts.y)))
+
+    def g1_mul(self, ks):
+        """[k]G1 by the G1 group law's ladder, affine."""
+        from gnark_crypto_tpu_torch.curve.jacobian import Jac
+
+        g1 = self.g1
+        G = g1.generator_jac(device=self.dev)
+        return g1.to_affine(g1.scalar_mul(
+            Jac(*(c.expand(len(ks), -1) for c in G)), self.fr(ks)))
+
+    def checks(self, compare, check):
+        from gnark_crypto_tpu_torch.field import mont
+
+        r, alpha = self.r, self.alpha
+        coeffs = mont.to_int(self.g1.spec.fr, self.polys[0], mont=False)
+        p_alpha = p_a = 0
+        for c in reversed(coeffs):     # Horner on host integers
+            p_alpha = (p_alpha * alpha + c) % r
+            p_a = (p_a * self.a[0] + c) % r
+        lanes = [0, 1, 2, self.n - 1]
+        pk = self.srs.pk.g1
+        check(self.g1_ints(type(pk)(*(c[lanes] for c in pk)))
+              == self.g1_ints(self.g1_mul([pow(alpha, i, r) for i in lanes])),
+              f"SRS [alpha^i]G1 at lanes {lanes}")
+        check(self.g1_ints(self.C) == self.g1_ints(self.g1_mul([p_alpha])),
+              f"commit 2^{self.n.bit_length() - 1} == [p(alpha)]G1")
+        check(mont.to_int(self.g1.spec.fr, self.proof.claimed_value,
+                          mont=False) == [p_a],
+              "open_poly claimed value == p(a) on host integers")
+        q_alpha = (p_alpha - p_a) * pow(alpha - self.a[0], -1, r) % r
+        check(self.g1_ints(self.proof.h) == self.g1_ints(self.g1_mul(
+            [q_alpha])), "open_poly H == [(p(alpha) - p(a)) / (alpha - a)]G1")
+        check(self.ok is True, "verify: True on the honest opening")
+        check(self.bad is False, "verify: False with the claimed value + 1")
+        check(self.bok is True, f"batch_verify_single_point over {self.K} "
+              "polynomials: True")
+        check(self.mok is True, f"batch_verify_multi_points over {self.K} "
+              "proofs at distinct points: True")
+        check(self.mbad is False, "batch_verify_multi_points with one "
+              "proof's H swapped: False")
+
+    # -- phase 3 -------------------------------------------------------------
+    def timings(self, cuda_ms, timings, kernel_rows):
+        import numpy as np
+
+        for label, per in self.wall.items():
+            timings[f"kzg bn254 2^{self.n.bit_length() - 1} {label}"] = {
+                "s": float(np.median(per)), "runs": per}
+
+
 def main() -> int:
     import torch
 
@@ -738,13 +1114,15 @@ def main() -> int:
 
     msm = MsmSlice(dev, nprng)
     pairing = PairingSlice(dev, nprng)
+    g2msm = G2MsmSlice(dev, nprng)
+    kzg = KzgSlice(dev, nprng)
     ntt_kernels = ("mont_mul", "ntt_radix2_stage", "ntt_radix2_block",
                    "ntt_four_step")
     wrappers = {"mont_mul": kernels.mont_mul,
                 "ntt_radix2_stage": radix2.stage,
                 "ntt_radix2_block": radix2.block,
                 "ntt_four_step": four_step.sub_ntt, **msm.wrappers,
-                "vm_execute": vm.vm_execute}
+                "vm_execute": vm.vm_execute, **g2msm.wrappers}
 
     def drive(path: str, run, kernel_names) -> dict:
         """Counts to 0, the path, counts read: {kernel: launches}."""
@@ -797,8 +1175,11 @@ def main() -> int:
     ntt_counts = drive("NTT", ntt_path, ntt_kernels)
     msm_counts = drive("MSM", msm.main_path, msm.KERNELS)
     pair_counts = drive("pairing", pairing.main_path, pairing.KERNELS)
-    launches = {name: ntt_counts[name] + msm_counts[name]
-                + pair_counts[name] for name in wrappers}
+    g2_counts = drive("G2 MSM", g2msm.main_path, g2msm.KERNELS)
+    kzg_counts = drive("KZG", kzg.main_path, kzg.KERNELS)
+    path_counts = (ntt_counts, msm_counts, pair_counts, g2_counts,
+                   kzg_counts)
+    launches = {name: sum(c[name] for c in path_counts) for name in wrappers}
 
     # ---------------------------------------------------------------- phase 2
     err = {name: 0 for name in wrappers}
@@ -904,6 +1285,8 @@ def main() -> int:
 
     msm.checks(compare, check)
     pairing.checks(compare, check)
+    g2msm.checks(compare, check)
+    kzg.checks(compare, check)
 
     # ---------------------------------------------------------------- phase 3
     def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
@@ -995,6 +1378,8 @@ def main() -> int:
 
     msm.timings(cuda_ms, timings, kernel_rows)
     pairing.timings(cuda_ms, timings, kernel_rows)
+    g2msm.timings(cuda_ms, timings, kernel_rows)
+    kzg.timings(cuda_ms, timings, kernel_rows)
 
     kernel_line = []
     sources = {
@@ -1020,6 +1405,17 @@ def main() -> int:
                              "gnark_crypto_tpu/field/pallas/point_add.py:421"),
         "vm_execute": ("gnark_crypto_tpu_torch/csrc/vm.cu",
                        "gnark_crypto_tpu/field/pallas/vm.py:354"),
+        "affine_prep2": ("gnark_crypto_tpu_torch/csrc/affine_level2.cu",
+                         "gnark_crypto_tpu/field/pallas/point_add2.py:192"),
+        "affine_finish2": ("gnark_crypto_tpu_torch/csrc/affine_level2.cu",
+                           "gnark_crypto_tpu/field/pallas/point_add2.py:227"),
+        "jac_add2": ("gnark_crypto_tpu_torch/csrc/point_add2.cu",
+                     "gnark_crypto_tpu/field/pallas/point_add2.py:320"),
+        "jac_double2": ("gnark_crypto_tpu_torch/csrc/point_add2.cu",
+                        "gnark_crypto_tpu/field/pallas/point_add2.py:328"),
+        "jac_fold_windows2": (
+            "gnark_crypto_tpu_torch/csrc/point_add2.cu",
+            "gnark_crypto_tpu/field/pallas/point_add2.py:367"),
     }
     for name in wrappers:
         r = kernel_rows[name]

@@ -9,16 +9,22 @@ entry point runs where its input tensor lives; constructors default to
 
 Ported so far (see ROADMAP.md for the rest):
   specs/      field and curve constant registries
-  field/      Montgomery word engine; mont_mul, exp_const, point and VM
-              kernels (field/vm.py: the straight-line program executor)
+  field/      Montgomery word engine; mont_mul, exp_const, point (Fp and
+              Fp2) and VM kernels (field/vm.py: the straight-line program
+              executor)
   ntt/        radix-2 domains, radix-2 and four-step NTT kernels
-  curve/      Jacobian group law (G1 on the point kernels; G2 over Fp2 in
-              curve/g2.py); GLV scalar splitting (curve/glv.py)
-  msm/        G1 Pippenger MSM (batch-affine bucket tree)
+  curve/      Jacobian group law (G1 on the Fp point kernels; G2 over Fp2
+              in curve/g2.py, on the Fp2 point kernels); GLV scalar
+              splitting (curve/glv.py)
+  msm/        G1 and G2 Pippenger MSM (batch-affine bucket tree)
   towers/     Fp2/Fp6/Fp12 extension engines, the BN/BLS12 tower and its
               symbolic twin that assembles VM programs
   pairing/    bn254/bls12 optimal ate pairing as VM programs; the api facade
-  io/         gnark GT byte codec
+  protocols/  KZG commitment: SRS, commit, open, verify, batch forms
+  hashes/     Fiat-Shamir transcript (host)
+  io/         gnark GT byte codec; point encoder (io/marshal.py)
+  utils/      kernel build (utils/build.py); log-depth scans
+              (utils/scans.py)
   convert.py  JAX limb arrays (elements, extension elements, points) <->
               port word tensors
 """

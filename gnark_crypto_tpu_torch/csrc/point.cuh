@@ -1,5 +1,8 @@
 // Short-Weierstrass point arithmetic on 8-word Montgomery elements: the
-// device cores of csrc/point_add.cu and csrc/affine_level.cu.
+// device cores of csrc/point_add.cu and csrc/affine_level.cu, and over Fp2
+// (csrc/fp2.cuh) of csrc/point_add2.cu and csrc/affine_level2.cu. Each core
+// is a template over the element type E (Elem or Elem2) and calls the
+// field ops by overload, as the JAX package's cores take an ops tuple.
 //
 // Counterparts of the Pallas cores in gnark_crypto_tpu/field/pallas/
 // point_add.py (`_dbl_core`, `_add_core_ops`, `_prep_kernel`,
@@ -19,10 +22,12 @@
 namespace gct {
 
 // The curve's a in Montgomery form, and Montgomery one.
-struct CurveConst {
-  Elem a;
-  Elem one;
+template <class E>
+struct CurveConstT {
+  E a;
+  E one;
 };
+using CurveConst = CurveConstT<Elem>;
 
 // Host: a's words, then one's words, as the Python wrappers pass them.
 inline CurveConst curve_const(const uint32_t* words) {
@@ -34,9 +39,11 @@ inline CurveConst curve_const(const uint32_t* words) {
   return cc;
 }
 
-struct JacPt {
-  Elem x, y, z;
+template <class E>
+struct JacT {
+  E x, y, z;
 };
+using JacPt = JacT<Elem>;
 
 __device__ __forceinline__ bool is_zero(const Elem& a) {
   uint32_t o = 0;
@@ -59,32 +66,33 @@ __device__ __forceinline__ Elem zero_elem() {
   return e;
 }
 
-__device__ __forceinline__ Elem dbl_mod(const Elem& a, const FieldConst& fc) {
+template <class E>
+__device__ __forceinline__ E dbl_mod(const E& a, const FieldConst& fc) {
   return add_mod(a, a, fc);
 }
 
 // dbl-2009-l (a = 0) / dbl-2007-bl (reference g1.go:397 DoubleAssign), as
 // `_dbl_core`. Infinity needs no mask: Z3 = 2*Y1*Z1 = 0 when Z1 = 0.
 // 7 products, 10 when a != 0.
-template <bool A_ZERO>
-__device__ __forceinline__ JacPt jac_double(const JacPt& p,
-                                            const FieldConst& fc,
-                                            const CurveConst& cc) {
-  const Elem A = mont_mul(p.x, p.x, fc);
-  const Elem B = mont_mul(p.y, p.y, fc);
-  const Elem C = mont_mul(B, B, fc);
-  Elem t = add_mod(p.x, B, fc);
+template <bool A_ZERO, class E>
+__device__ __forceinline__ JacT<E> jac_double(const JacT<E>& p,
+                                              const FieldConst& fc,
+                                              const CurveConstT<E>& cc) {
+  const E A = mont_mul(p.x, p.x, fc);
+  const E B = mont_mul(p.y, p.y, fc);
+  const E C = mont_mul(B, B, fc);
+  E t = add_mod(p.x, B, fc);
   t = mont_mul(t, t, fc);
-  const Elem D = dbl_mod(sub_mod(sub_mod(t, A, fc), C, fc), fc);
-  Elem E = add_mod(dbl_mod(A, fc), A, fc);
+  const E D = dbl_mod(sub_mod(sub_mod(t, A, fc), C, fc), fc);
+  E e = add_mod(dbl_mod(A, fc), A, fc);
   if (!A_ZERO) {
-    const Elem z2 = mont_mul(p.z, p.z, fc);
-    E = add_mod(E, mont_mul(mont_mul(z2, z2, fc), cc.a, fc), fc);
+    const E z2 = mont_mul(p.z, p.z, fc);
+    e = add_mod(e, mont_mul(mont_mul(z2, z2, fc), cc.a, fc), fc);
   }
-  const Elem F = mont_mul(E, E, fc);
-  JacPt r;
+  const E F = mont_mul(e, e, fc);
+  JacT<E> r;
   r.x = sub_mod(F, dbl_mod(D, fc), fc);
-  r.y = sub_mod(mont_mul(E, sub_mod(D, r.x, fc), fc),
+  r.y = sub_mod(mont_mul(e, sub_mod(D, r.x, fc), fc),
                 dbl_mod(dbl_mod(dbl_mod(C, fc), fc), fc), fc);
   r.z = dbl_mod(mont_mul(p.y, p.z, fc), fc);
   return r;
@@ -95,38 +103,36 @@ __device__ __forceinline__ JacPt jac_double(const JacPt& p,
 // precedence: P == Q doubles, P == -Q gives infinity, then an infinite P
 // returns Q and an infinite Q returns P. 16 products, plus the doubling's
 // where a lane doubles.
-template <bool A_ZERO>
-__device__ __forceinline__ JacPt jac_add(const JacPt& p, const JacPt& q,
-                                         const FieldConst& fc,
-                                         const CurveConst& cc) {
+template <bool A_ZERO, class E>
+__device__ __forceinline__ JacT<E> jac_add(const JacT<E>& p, const JacT<E>& q,
+                                           const FieldConst& fc,
+                                           const CurveConstT<E>& cc) {
   const bool q_inf = is_zero(q.z);
   if (q_inf) return p;
   const bool p_inf = is_zero(p.z);
   if (p_inf) return q;
-  const Elem z1z1 = mont_mul(p.z, p.z, fc);
-  const Elem z2z2 = mont_mul(q.z, q.z, fc);
-  const Elem u1 = mont_mul(p.x, z2z2, fc);
-  const Elem u2 = mont_mul(q.x, z1z1, fc);
-  const Elem s1 = mont_mul(mont_mul(p.y, q.z, fc), z2z2, fc);
-  const Elem s2 = mont_mul(mont_mul(q.y, p.z, fc), z1z1, fc);
-  const Elem h = sub_mod(u2, u1, fc);
-  const Elem rr = dbl_mod(sub_mod(s2, s1, fc), fc);
+  const E z1z1 = mont_mul(p.z, p.z, fc);
+  const E z2z2 = mont_mul(q.z, q.z, fc);
+  const E u1 = mont_mul(p.x, z2z2, fc);
+  const E u2 = mont_mul(q.x, z1z1, fc);
+  const E s1 = mont_mul(mont_mul(p.y, q.z, fc), z2z2, fc);
+  const E s2 = mont_mul(mont_mul(q.y, p.z, fc), z1z1, fc);
+  const E h = sub_mod(u2, u1, fc);
+  const E rr = dbl_mod(sub_mod(s2, s1, fc), fc);
   const bool h0 = is_zero(h);
   if (h0) {
     if (is_zero(rr)) return jac_double<A_ZERO>(p, fc, cc);  // P == Q
-    JacPt inf;                                               // P == -Q
-    inf.x = inf.y = inf.z = zero_elem();
-    return inf;
+    return JacT<E>{};                                        // P == -Q
   }
-  Elem i = dbl_mod(h, fc);
+  E i = dbl_mod(h, fc);
   i = mont_mul(i, i, fc);
-  const Elem j = mont_mul(h, i, fc);
-  const Elem v = mont_mul(u1, i, fc);
-  JacPt r;
+  const E j = mont_mul(h, i, fc);
+  const E v = mont_mul(u1, i, fc);
+  JacT<E> r;
   r.x = sub_mod(sub_mod(mont_mul(rr, rr, fc), j, fc), dbl_mod(v, fc), fc);
   r.y = sub_mod(mont_mul(rr, sub_mod(v, r.x, fc), fc),
                 dbl_mod(mont_mul(s1, j, fc), fc), fc);
-  const Elem z12 = add_mod(p.z, q.z, fc);
+  const E z12 = add_mod(p.z, q.z, fc);
   r.z = mont_mul(sub_mod(sub_mod(mont_mul(z12, z12, fc), z1z1, fc), z2z2, fc),
                  h, fc);
   return r;
@@ -138,12 +144,12 @@ constexpr int MB_DBL = 1, MB_INFOUT = 2, MB_PINF = 4, MB_QINF = 8;
 // Tree-level prep (`_prep_kernel`): the shared denominator (2y when P == Q,
 // else qx - px; 1 where that is 0), the numerator (3x^2 + a when P == Q,
 // else qy - py) and the mask bits. 1 product, on doubling lanes only.
-template <bool A_ZERO>
-__device__ __forceinline__ int affine_prep(const Elem& px, const Elem& py,
-                                           const Elem& qx, const Elem& qy,
-                                           Elem& den, Elem& num,
+template <bool A_ZERO, class E>
+__device__ __forceinline__ int affine_prep(const E& px, const E& py,
+                                           const E& qx, const E& qy,
+                                           E& den, E& num,
                                            const FieldConst& fc,
-                                           const CurveConst& cc) {
+                                           const CurveConstT<E>& cc) {
   const bool p_inf = is_zero(px) && is_zero(py);
   const bool q_inf = is_zero(qx) && is_zero(qy);
   const bool both = !p_inf && !q_inf;
@@ -153,7 +159,7 @@ __device__ __forceinline__ int affine_prep(const Elem& px, const Elem& py,
   const bool inf_out = (x_eq && !y_eq && both) || (is_dbl && is_zero(py));
   if (is_dbl) {
     den = dbl_mod(py, fc);
-    const Elem x2 = mont_mul(px, px, fc);
+    const E x2 = mont_mul(px, px, fc);
     num = add_mod(dbl_mod(x2, fc), x2, fc);
     if (!A_ZERO) num = add_mod(num, cc.a, fc);
   } else {
@@ -167,10 +173,11 @@ __device__ __forceinline__ int affine_prep(const Elem& px, const Elem& py,
 
 // The complete affine sum P + Q from the inverted denominator
 // (`_finish_kernel`'s mid): 3 products.
-__device__ __forceinline__ void affine_sum(const Elem& px, const Elem& py,
-                                           const Elem& qx, const Elem& qy,
-                                           const Elem& num, const Elem& dinv,
-                                           int bits, Elem& mx, Elem& my,
+template <class E>
+__device__ __forceinline__ void affine_sum(const E& px, const E& py,
+                                           const E& qx, const E& qy,
+                                           const E& num, const E& dinv,
+                                           int bits, E& mx, E& my,
                                            const FieldConst& fc) {
   if (bits & MB_QINF) {
     mx = px;
@@ -179,9 +186,9 @@ __device__ __forceinline__ void affine_sum(const Elem& px, const Elem& py,
     mx = qx;
     my = qy;
   } else if (bits & MB_INFOUT) {
-    mx = my = zero_elem();
+    mx = my = E{};
   } else {
-    const Elem s = mont_mul(num, dinv, fc);
+    const E s = mont_mul(num, dinv, fc);
     mx = sub_mod(sub_mod(mont_mul(s, s, fc), px, fc), qx, fc);
     my = sub_mod(mont_mul(s, sub_mod(px, mx, fc), fc), py, fc);
   }

@@ -15,8 +15,11 @@ extension engine (``Curve(spec, fp_eng)``, the G2 groups of
 Over a prime field, :meth:`Curve.add` and :meth:`Curve.double` go to the
 ``jac_add`` and ``jac_double`` kernels for CUDA tensors at every batch
 size, and to their plain versions for CPU tensors (``field/point_add.py``).
-A curve whose field the kernels refuse (12-word bls12 Fp, say) raises on
-CUDA, as ``mont.mul`` does. Over an extension, and for ``add_mixed``
+Over a quadratic extension with a small-int non-residue and a = 0 (the G2
+groups; the JAX package's ``_pallas2_ok`` test) they go to ``jac_add2``
+and ``jac_double2`` (``field/point_add2.py``) in the same way. A curve
+whose field the kernels refuse (12-word bls12 Fp, say) raises on CUDA, as
+``mont.mul`` does. Over any other extension, and for ``add_mixed``
 everywhere, the group law stays composed of field ops, as in the JAX
 package; on the card those ops launch ``mont_mul``.
 """
@@ -28,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from gnark_crypto_tpu_torch.field import point_add
+from gnark_crypto_tpu_torch.field import point_add, point_add2
 from gnark_crypto_tpu_torch.field.api import FieldEngine, for_spec
 from gnark_crypto_tpu_torch.field.kernels import u32
 from gnark_crypto_tpu_torch.field.mont import DEFAULT_DEVICE
@@ -46,17 +49,13 @@ class Jac(NamedTuple):
     z: torch.Tensor
 
 
-def _sel(cond: torch.Tensor, a, b):
-    """cond ? a : b coordinate by coordinate (cond has the element shape)."""
-    return type(a)(*(torch.where(cond[..., None], xa, xb)
-                     for xa, xb in zip(a, b)))
-
-
-def _flat(coords, W: int):
-    """Broadcast coordinates to one element shape; (N, W) contiguous views
-    for a kernel wrapper, and that shape."""
-    shape = torch.broadcast_shapes(*(c.shape[:-1] for c in coords))
-    return ([c.expand(*shape, W).reshape(-1, W).contiguous()
+def _flat(coords, tail: tuple[int, ...]):
+    """Broadcast coordinates to one batch shape; (N, *tail) contiguous
+    views for a kernel wrapper (tail: one element's shape, (W,) or
+    (2, W)), and that batch shape."""
+    k = len(tail)
+    shape = torch.broadcast_shapes(*(c.shape[:-k] for c in coords))
+    return ([c.expand(*shape, *tail).reshape(-1, *tail).contiguous()
              for c in coords], shape)
 
 
@@ -82,13 +81,23 @@ class Curve:
         self.fr: FieldEngine = for_spec(spec.fr)
         self.a_is_zero = all(c % spec.fp.modulus == 0
                              for c in _flat_ints(spec.a))
-        # the point kernels take curves over the prime field itself; over
-        # an extension (G2, a = 0 on every pairing curve) the group law is
-        # composed of field ops
+        # the point kernels take curves over the prime field itself, and
+        # (jac_add2/jac_double2) over a quadratic extension of it with a
+        # small-int non-residue and a = 0 (G2 on every pairing curve); over
+        # any other extension the group law is composed of field ops
         self._kernels = isinstance(self.fp, FieldEngine)
         if not (self._kernels or self.a_is_zero):
             raise NotImplementedError(
                 f"{spec.name}: a != 0 over an extension field")
+        nr = getattr(self.fp, "nr", None)
+        self._kernels2 = (getattr(self.fp, "degree", 0) == 2
+                          and isinstance(self.fp.base, FieldEngine)
+                          and isinstance(nr, int) and nr != 0
+                          and -16 <= nr <= 16)
+        # one element's trailing shape: (W,) over Fp, (2, W) over Fp2
+        self.elem_tail = ((spec.fp.n_words,) if self._kernels
+                          else (2, spec.fp.n_words) if self._kernels2
+                          else None)
 
     def _select(self, cond: torch.Tensor, a, b):
         """cond ? a : b coordinate by coordinate (cond: element shape)."""
@@ -176,23 +185,26 @@ class Curve:
     def double(self, p: Jac) -> Jac:
         """dbl-2009-l (a = 0) / dbl-2007-bl (general a); infinity-safe
         (reference g1.go:397-424 DoubleAssign). One ``jac_double`` over a
-        prime field."""
-        if not self._kernels:
+        prime field, one ``jac_double2`` over Fp2."""
+        if self.elem_tail is None:
             return self._double_composed(p)
-        W = self.spec.fp.n_words
-        flat, shape = _flat(p, W)
-        out = point_add.jac_double(self.spec.fp, self.spec.a, *flat)
-        return Jac(*(o.reshape(*shape, W) for o in out))
+        return self._launch(point_add.jac_double, point_add2.jac_double2, p)
 
     def add(self, p: Jac, q: Jac) -> Jac:
         """Complete masked add-2007-bl (reference g1.go:332 AddAssign),
-        broadcasting the two batches. One ``jac_add`` over a prime field."""
-        if not self._kernels:
+        broadcasting the two batches. One ``jac_add`` over a prime field, one
+        ``jac_add2`` over Fp2."""
+        if self.elem_tail is None:
             return self._add_composed(p, q)
-        W = self.spec.fp.n_words
-        flat, shape = _flat((*p, *q), W)
-        out = point_add.jac_add(self.spec.fp, self.spec.a, *flat)
-        return Jac(*(o.reshape(*shape, W) for o in out))
+        return self._launch(point_add.jac_add, point_add2.jac_add2, (*p, *q))
+
+    def _launch(self, fp_kernel, fp2_kernel, coords) -> Jac:
+        """One point-kernel call over the broadcast batch: ``fp_kernel``
+        (spec, a, ...) over Fp, ``fp2_kernel`` (spec, nr, ...) over Fp2."""
+        flat, shape = _flat(coords, self.elem_tail)
+        out = (fp_kernel(self.spec.fp, self.spec.a, *flat) if self._kernels
+               else fp2_kernel(self.spec.fp, self.fp.nr, *flat))
+        return Jac(*(o.reshape(*shape, *self.elem_tail) for o in out))
 
     def _double_composed(self, p: Jac) -> Jac:
         """dbl-2009-l (a = 0) in field ops (the JAX package's

@@ -52,21 +52,14 @@ def _elem(spec: FieldSpec, value: int, like: torch.Tensor) -> torch.Tensor:
                               str(like.device)))
 
 
-def _is_zero(t: torch.Tensor) -> torch.Tensor:
-    return torch.all(t == 0, dim=-1)
-
-
-def _sel(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor
-         ) -> torch.Tensor:
-    return torch.where(cond[..., None], a, b)
-
-
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
 class _Ops:
-    """The four field ops of the plain cores (``_field_ops``)."""
+    """The field ops of the plain cores (``_field_ops``) on ``(N, W)``
+    elements; ``field/point_add2.py`` subclasses it for Fp2, as the JAX
+    package's cores take an ops tuple."""
 
     def __init__(self, spec: FieldSpec):
         self.spec = spec
@@ -81,7 +74,21 @@ class _Ops:
         return mont.sub(self.spec, a, b)
 
     def dbl(self, a):
-        return mont.add(self.spec, a, a)
+        return self.add(a, a)
+
+    def is_zero(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.all(t == 0, dim=-1)
+
+    def equal(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self.is_zero(a ^ b)
+
+    def sel(self, cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+            ) -> torch.Tensor:
+        return torch.where(cond[..., None], a, b)
+
+    def one(self, like: torch.Tensor) -> torch.Tensor:
+        """Montgomery one, shaped like ``like``."""
+        return _elem(self.spec, self.spec.r, like).expand_as(like)
 
 
 def _dbl_core(f: _Ops, a_int: int, x1, y1, z1) -> Coords:
@@ -124,8 +131,8 @@ def _add_core(f: _Ops, a_int: int, x1, y1, z1, x2, y2, z2) -> Coords:
     z12 = f.add(z1, z2)
     z3 = f.mul(f.sub(f.sub(f.mul(z12, z12), z1z1), z2z2), h)
 
-    h0, r0 = _is_zero(h), _is_zero(rr)
-    p_inf, q_inf = _is_zero(z1), _is_zero(z2)
+    h0, r0 = f.is_zero(h), f.is_zero(rr)
+    p_inf, q_inf = f.is_zero(z1), f.is_zero(z2)
     is_dbl = h0 & r0
     is_inf = h0 & ~r0 & ~p_inf & ~q_inf
     # the doubling fallback only where a lane takes it (the same values)
@@ -134,11 +141,70 @@ def _add_core(f: _Ops, a_int: int, x1, y1, z1, x2, y2, z2) -> Coords:
     zero = torch.zeros_like(x3)
     out = []
     for gen, d, pc, qc in zip((x3, y3, z3), dbl, (x1, y1, z1), (x2, y2, z2)):
-        o = _sel(is_dbl, d, gen)
-        o = _sel(is_inf, zero, o)
-        o = _sel(p_inf, qc, o)
-        out.append(_sel(q_inf, pc, o))
+        o = f.sel(is_dbl, d, gen)
+        o = f.sel(is_inf, zero, o)
+        o = f.sel(p_inf, qc, o)
+        out.append(f.sel(q_inf, pc, o))
     return tuple(out)
+
+
+def _prep_core(f: _Ops, a_int: int, px, py, qx, qy):
+    """(den, num, maskbits) of the complete affine add P + Q."""
+    p_inf = f.is_zero(px) & f.is_zero(py)
+    q_inf = f.is_zero(qx) & f.is_zero(qy)
+    both = ~p_inf & ~q_inf
+    x_eq = f.equal(px, qx)
+    y_eq = f.equal(py, qy)
+    is_dbl = x_eq & y_eq & both
+    inf_out = (x_eq & ~y_eq & both) | (is_dbl & f.is_zero(py))
+    den = f.sel(is_dbl, f.dbl(py), f.sub(qx, px))
+    den = f.sel(f.is_zero(den), f.one(den), den)
+    x2 = f.mul(px, px)
+    num_dbl = f.add(f.dbl(x2), x2)
+    if a_int % f.spec.modulus:
+        num_dbl = f.add(num_dbl, _elem(f.spec, _a_mont(f.spec, a_int),
+                                       px).expand_as(num_dbl))
+    num = f.sel(is_dbl, num_dbl, f.sub(qy, py))
+    bits = (is_dbl.to(torch.int32) * MB_DBL
+            + inf_out.to(torch.int32) * MB_INFOUT
+            + p_inf.to(torch.int32) * MB_PINF
+            + q_inf.to(torch.int32) * MB_QINF)
+    return den, num, bits
+
+
+def _finish_core(f: _Ops, lpx, lpy, lsx, lsy, rpx, rpy, rsx, rsy, num, dinv,
+                 maskbits, treebits) -> Coords:
+    """(pre.x, pre.y, suf.x, suf.y, pt_a.x, pt_a.y, z_a) of one level."""
+    px, py, qx, qy = lsx, lsy, rpx, rpy
+    inf_out = (maskbits & MB_INFOUT) != 0
+    p_inf = (maskbits & MB_PINF) != 0
+    q_inf = (maskbits & MB_QINF) != 0
+    s = f.mul(num, dinv)
+    x3 = f.sub(f.sub(f.mul(s, s), px), qx)
+    y3 = f.sub(f.mul(s, f.sub(px, x3)), py)
+    zero = torch.zeros_like(px)
+    mx, my = f.sel(inf_out, zero, x3), f.sel(inf_out, zero, y3)
+    mx, my = f.sel(p_inf, qx, mx), f.sel(p_inf, qy, my)
+    mx, my = f.sel(q_inf, px, mx), f.sel(q_inf, py, my)
+    eq = (treebits & 1) != 0
+    l_single = (treebits & 2) != 0
+    r_single = (treebits & 4) != 0
+    pax, pay = f.sel(eq, mx, px), f.sel(eq, my, py)
+    za = f.sel(f.is_zero(pax) & f.is_zero(pay), zero, f.one(px))
+    return (f.sel(l_single & eq, mx, lpx), f.sel(l_single & eq, my, lpy),
+            f.sel(r_single & eq, mx, rsx), f.sel(r_single & eq, my, rsy),
+            pax, pay, za)
+
+
+def _fold_core(f: _Ops, a_int: int, x, y, z, c: int) -> Coords:
+    """acc = sum_w 2^(c w) T_w by Horner; (nwin, ...) in, (1, ...) out."""
+    nwin = x.shape[0]
+    acc = (x[nwin - 1:], y[nwin - 1:], z[nwin - 1:])
+    for w in range(nwin - 2, -1, -1):
+        for _ in range(c):
+            acc = _dbl_core(f, a_int, *acc)
+        acc = _add_core(f, a_int, *acc, x[w:w + 1], y[w:w + 1], z[w:w + 1])
+    return acc
 
 
 def jac_add_plain(spec: FieldSpec, a_int: int, x1, y1, z1, x2, y2, z2
@@ -152,68 +218,19 @@ def jac_double_plain(spec: FieldSpec, a_int: int, x1, y1, z1) -> Coords:
 
 def affine_prep_plain(spec: FieldSpec, a_int: int, px, py, qx, qy
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(den, num, maskbits) of the complete affine add P + Q."""
-    f = _Ops(spec)
-    p_inf = _is_zero(px) & _is_zero(py)
-    q_inf = _is_zero(qx) & _is_zero(qy)
-    both = ~p_inf & ~q_inf
-    x_eq = torch.all(px == qx, dim=-1)
-    y_eq = torch.all(py == qy, dim=-1)
-    is_dbl = x_eq & y_eq & both
-    inf_out = (x_eq & ~y_eq & both) | (is_dbl & _is_zero(py))
-    den = _sel(is_dbl, f.dbl(py), f.sub(qx, px))
-    den = _sel(_is_zero(den), _elem(spec, spec.r, px).expand_as(den), den)
-    x2 = f.mul(px, px)
-    num_dbl = f.add(f.dbl(x2), x2)
-    if a_int % spec.modulus:
-        num_dbl = f.add(num_dbl, _elem(spec, _a_mont(spec, a_int),
-                                       px).expand_as(num_dbl))
-    num = _sel(is_dbl, num_dbl, f.sub(qy, py))
-    bits = (is_dbl.to(torch.int32) * MB_DBL
-            + inf_out.to(torch.int32) * MB_INFOUT
-            + p_inf.to(torch.int32) * MB_PINF
-            + q_inf.to(torch.int32) * MB_QINF)
-    return den, num, bits
+    return _prep_core(_Ops(spec), a_int, px, py, qx, qy)
 
 
 def affine_finish_plain(spec: FieldSpec, a_int: int, lpx, lpy, lsx, lsy,
                         rpx, rpy, rsx, rsy, num, dinv, maskbits, treebits
                         ) -> Coords:
-    """(pre.x, pre.y, suf.x, suf.y, pt_a.x, pt_a.y, z_a) of one level."""
-    f = _Ops(spec)
-    px, py, qx, qy = lsx, lsy, rpx, rpy
-    inf_out = (maskbits & MB_INFOUT) != 0
-    p_inf = (maskbits & MB_PINF) != 0
-    q_inf = (maskbits & MB_QINF) != 0
-    s = f.mul(num, dinv)
-    x3 = f.sub(f.sub(f.mul(s, s), px), qx)
-    y3 = f.sub(f.mul(s, f.sub(px, x3)), py)
-    zero = torch.zeros_like(px)
-    mx, my = _sel(inf_out, zero, x3), _sel(inf_out, zero, y3)
-    mx, my = _sel(p_inf, qx, mx), _sel(p_inf, qy, my)
-    mx, my = _sel(q_inf, px, mx), _sel(q_inf, py, my)
-    eq = (treebits & 1) != 0
-    l_single = (treebits & 2) != 0
-    r_single = (treebits & 4) != 0
-    pax, pay = _sel(eq, mx, px), _sel(eq, my, py)
-    one = _elem(spec, spec.r, px).expand_as(px)
-    za = _sel(_is_zero(pax) & _is_zero(pay), zero, one)
-    return (_sel(l_single & eq, mx, lpx), _sel(l_single & eq, my, lpy),
-            _sel(r_single & eq, mx, rsx), _sel(r_single & eq, my, rsy),
-            pax, pay, za)
+    return _finish_core(_Ops(spec), lpx, lpy, lsx, lsy, rpx, rpy, rsx, rsy,
+                        num, dinv, maskbits, treebits)
 
 
 def jac_fold_windows_plain(spec: FieldSpec, a_int: int, x, y, z, c: int
                            ) -> Coords:
-    """acc = sum_w 2^(c w) T_w by Horner; (nwin, W) in, (1, W) out."""
-    f = _Ops(spec)
-    nwin = x.shape[0]
-    acc = (x[nwin - 1:], y[nwin - 1:], z[nwin - 1:])
-    for w in range(nwin - 2, -1, -1):
-        for _ in range(c):
-            acc = _dbl_core(f, a_int, *acc)
-        acc = _add_core(f, a_int, *acc, x[w:w + 1], y[w:w + 1], z[w:w + 1])
-    return acc
+    return _fold_core(_Ops(spec), a_int, x, y, z, c)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Multi-scalar multiplication (Pippenger), G1.
+"""Multi-scalar multiplication (Pippenger), G1 and G2.
 
-Counterpart of the G1 path of ``gnark_crypto_tpu/msm/pippenger.py``
-(reference ``ecc/bn254/multiexp.go``), with JAX's ``jit`` and ``scan``
-written as eager loops:
+Counterpart of ``gnark_crypto_tpu/msm/pippenger.py`` (reference
+``ecc/bn254/multiexp.go``, ``multiexp_affine.go`` for G2), with JAX's
+``jit`` and ``scan`` written as eager loops:
 
 * signed base-2^c digits, so 2^(c-1) buckets per window
   (``partitionScalars``, multiexp.go:710);
@@ -20,18 +20,26 @@ written as eager loops:
   ``jac_fold_windows`` launch (``msmReduceChunkG1Affine``,
   multiexp.go:303).
 
-Points are affine ``int32[N, W]`` Montgomery words; scalars plain Fr words.
+G1 points are affine ``int32[N, W]`` Montgomery words; scalars plain Fr
+words. A G2 curve (``curve/g2.py``: a = 0 over Fp2 with a small-int
+non-residue) takes ``int32[N, 2, W]`` points through the same steps on the
+Fp2 kernels of ``field/point_add2.py`` (``affine_prep2``,
+``affine_finish2``, ``jac_add2``, ``jac_double2``,
+``jac_fold_windows2``); its batch inverse goes through the norm, so each
+level's 128-lane seed is still one ``exp_const`` launch on Fp.
 The sort keys are sorted with ``stable=True``, as ``jnp.argsort`` sorts, so
 every step takes the JAX package's lanes in the same order.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from gnark_crypto_tpu_torch.curve.jacobian import (
-    Affine, Curve, Jac, _sel, curve_ops)
-from gnark_crypto_tpu_torch.field import point_add
+    Affine, Curve, Jac, curve_ops)
+from gnark_crypto_tpu_torch.field import point_add, point_add2
 from gnark_crypto_tpu_torch.field.kernels import u32
 from gnark_crypto_tpu_torch.specs.curve import CurveSpec
 
@@ -110,7 +118,19 @@ def _log_batch_inverse(f, d: torch.Tensor) -> torch.Tensor:
     Up-sweep products down to ``INV_STOP_W`` lanes, one ``inverse`` of
     those (one ``exp_const`` launch on the card), then the pairwise
     down-sweep: about 3N products in 2 log2(N / 128) rounds. Zero entries
-    must be masked to 1 by the caller."""
+    must be masked to 1 by the caller.
+
+    Over Fp2 the sweeps run on the norms in Fp (e2.go Inverse:
+    1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 - nr a1^2)): the inverse is the
+    same canonical value as sweeping in Fp2, for 4 full-width base
+    products and 3 additions instead of about 3N Fp2 products, each of
+    them 3 base products and 5 additions in launches."""
+    if getattr(f, "degree", 0) == 2:
+        b = f.base
+        a0, a1 = f.coeff(d, 0), f.coeff(d, 1)
+        ninv = _log_batch_inverse(b, b.sub(b.square(a0),
+                                           f.mul_by_nr(b.square(a1))))
+        return f.build([b.mul(a0, ninv), b.neg(b.mul(a1, ninv))])
     w = d.shape[0]
     m = 1 << (w - 1).bit_length()
     if m != w:
@@ -124,7 +144,8 @@ def _log_batch_inverse(f, d: torch.Tensor) -> torch.Tensor:
         a, b = _pair_split(cur)
         ia = f.mul(inv, b)
         ib = f.mul(inv, a)
-        inv = torch.stack([ia, ib], dim=1).reshape(2 * ia.shape[0], -1)
+        inv = torch.stack([ia, ib], dim=1).reshape(2 * ia.shape[0],
+                                                   *ia.shape[1:])
     return inv[:w]
 
 
@@ -149,10 +170,11 @@ def _sorted_lanes(curve: Curve, points: Affine, mag, neg, c: int):
     multiple of 2^L lanes, L the phase-1 level count, not to a power of two:
     every phase-1 level needs only an even width.
 
-    Returns the sorted keys (m,) and the signed points (m, W), infinity on
-    digit-0 and padding lanes (key % slots == 0 covers both)."""
+    Returns the sorted keys (m,) and the signed points (m, *tail), infinity
+    on digit-0 and padding lanes (key % slots == 0 covers both)."""
     f = curve.fp
-    W = curve.spec.fp.n_words
+    tail = curve.elem_tail
+    E = points.x[0].numel()
     dev = mag.device
     G, n = mag.shape
     slots = (1 << (c - 1)) + 1
@@ -169,12 +191,12 @@ def _sorted_lanes(curve: Curve, points: Affine, mag, neg, c: int):
     order = torch.argsort(keys, stable=True)
     key_s = keys[order]
     # one gather of both coordinates, packed side by side
-    pk = torch.cat([points.x, points.y], dim=-1).index_select(0, order % n)
-    px, py = pk[:, :W], pk[:, W:]
-    py = torch.where(negf[order][:, None], f.neg(py), py)
-    digit0 = ((key_s % slots) == 0)[:, None]
-    return key_s, Affine(torch.where(digit0, 0, px),
-                         torch.where(digit0, 0, py))
+    pk = torch.cat([points.x.reshape(n, E), points.y.reshape(n, E)],
+                   dim=1).index_select(0, order % n)
+    px, py = pk[:, :E].reshape(m, *tail), pk[:, E:].reshape(m, *tail)
+    py = f.where(negf[order], f.neg(py), py)
+    digit0 = (key_s % slots) == 0
+    return key_s, Affine(f.where(digit0, 0, px), f.where(digit0, 0, py))
 
 
 def _affine_levels(curve: Curve, pts: Affine, keys, sentinel: int):
@@ -187,15 +209,14 @@ def _affine_levels(curve: Curve, pts: Affine, keys, sentinel: int):
     runs, emitted densely as keys (sentinel where nothing completes or the
     sum is infinity) and Jacobian points."""
     f = curve.fp
-    fp, a = curve.spec.fp, curve.spec.a
+    prep, finish = _level_kernels(curve)
     e_keys, e_pts = [], []
     one = f.ones((1,), device=keys.device)
 
     def emit(valid, d, pt: Affine, is_inf):
         k = torch.where(valid & ~is_inf, d, sentinel)
         e_keys.append(k)
-        e_pts.append(Jac(pt.x, pt.y, torch.where((k < sentinel)[:, None],
-                                                 one, 0)))
+        e_pts.append(Jac(pt.x, pt.y, f.where(k < sentinel, one, 0)))
 
     pre = suf = pts
     pre_d = suf_d = keys
@@ -211,12 +232,12 @@ def _affine_levels(curve: Curve, pts: Affine, keys, sentinel: int):
         eq = l_suf_d == r_pre_d
         emit_a = ~l_single & (~eq | ~r_single)
         emit_b = ~eq & ~r_single
-        den, num, mbits = point_add.affine_prep(fp, a, *l_suf, *r_pre)
+        den, num, mbits = prep(*l_suf, *r_pre)
         dinv = _log_batch_inverse(f, den)
         tb = (eq.to(torch.int32) + (l_single.to(torch.int32) << 1)
               + (r_single.to(torch.int32) << 2))
-        prex, prey, sufx, sufy, pax, pay, za = point_add.affine_finish(
-            fp, a, *l_pre, *l_suf, *r_pre, *r_suf, num, dinv, mbits, tb)
+        prex, prey, sufx, sufy, pax, pay, za = finish(
+            *l_pre, *l_suf, *r_pre, *r_suf, num, dinv, mbits, tb)
         emit(emit_a, l_suf_d, Affine(pax, pay), f.is_zero(za))
         emit(emit_b, r_pre_d, r_pre, curve.is_inf_affine(r_pre))
         pre, suf = Affine(prex, prey), Affine(sufx, sufy)
@@ -232,6 +253,7 @@ def _jacobian_levels(curve: Curve, nodes, sentinel: int):
     slot i + 2^j. Returns the emitted keys and points, as phase 1 does,
     the root's runs included."""
     f = curve.fp
+    sel = curve._select
     pre, suf, pre_d, suf_d, single = nodes
     dev = pre_d.device
     B0 = pre.x.shape[0]
@@ -263,13 +285,13 @@ def _jacobian_levels(curve: Curve, nodes, sentinel: int):
         eq = suf_d == r_pre_d
         emit_a = aligned & ~single & (~eq | ~r_single)
         j_keys.append(torch.where(emit_a, suf_d, sentinel))
-        j_pts.append(_sel(eq, mid, sufJ))
+        j_pts.append(sel(eq, mid, sufJ))
         emit_b = aligned & ~eq & ~r_single
         j_keys.append(torch.where(emit_b, r_pre_d, sentinel))
         j_pts.append(r_pre)
 
-        preJ = _sel(aligned, _sel(single & eq, mid, preJ), preJ)
-        sufJ = _sel(aligned, _sel(r_single & eq, mid, r_suf), sufJ)
+        preJ = sel(aligned, sel(single & eq, mid, preJ), preJ)
+        sufJ = sel(aligned, sel(r_single & eq, mid, r_suf), sufJ)
         suf_d = torch.where(aligned, r_suf_d, suf_d)
         single = torch.where(aligned, single & r_single & eq, single)
 
@@ -282,7 +304,7 @@ def _jacobian_levels(curve: Curve, nodes, sentinel: int):
 
 def _bucket_accumulate_affine(curve: Curve, points: Affine, mag, neg,
                               c: int) -> Jac:
-    """Window group -> Jacobian buckets (G, slots, W); slot 0 of each
+    """Window group -> Jacobian buckets (G, slots, *tail); slot 0 of each
     window holds digit-0 junk and is never swept.
 
     mag/neg: (G, N). :func:`_sorted_lanes`, then phase 1
@@ -292,7 +314,6 @@ def _bucket_accumulate_affine(curve: Curve, points: Affine, mag, neg,
     unique among the emissions, and each phase's emissions go into the
     bucket array by one argsort and one scatter."""
     G = mag.shape[0]
-    W = curve.spec.fp.n_words
     slots = (1 << (c - 1)) + 1
     sentinel = G * slots
     keys, pts = _sorted_lanes(curve, points, mag, neg, c)
@@ -303,11 +324,12 @@ def _bucket_accumulate_affine(curve: Curve, points: Affine, mag, neg,
         _emitted_to_buckets(buckets, e_keys, e_pts, sentinel)
     j_keys, j_pts = _jacobian_levels(curve, nodes, sentinel)
     _emitted_to_buckets(buckets, j_keys, j_pts, sentinel)
-    return Jac(*(bc[:sentinel].reshape(G, slots, W) for bc in buckets))
+    return Jac(*(bc[:sentinel].reshape(G, slots, *curve.elem_tail)
+                 for bc in buckets))
 
 
 def _strided_scan_add(curve: Curve, p: Jac, S: int, suffix: bool) -> Jac:
-    """Log-depth strided reductions on a flat (nwin*S, W) batch.
+    """Log-depth strided reductions on a flat (nwin*S,) point batch.
 
     suffix=False: in-window pairwise tree sum (the window total lands at
     each window's slot 0); suffix=True: in-window Hillis-Steele inclusive
@@ -320,20 +342,20 @@ def _strided_scan_add(curve: Curve, p: Jac, S: int, suffix: bool) -> Jac:
         valid = (iota % S) + s < S
         if not suffix:
             valid &= (iota & (2 * s - 1)) == 0
-        p = _sel(valid, added, p)
+        p = curve._select(valid, added, p)
     return p
 
 
 def _weighted_sweep(curve: Curve, buckets: Jac, c: int,
                     n_chunks: int = 128) -> Jac:
-    """Buckets (nwin, half+1, W) -> window totals sum_j j*B_j (nwin, W).
+    """Buckets (nwin, half+1) -> window totals sum_j j*B_j (nwin,).
 
     Each window's buckets split into S chunks of m = half/S; the running
     sweep (S += B_j; T += S) runs on all nwin*S chunks together for m
     steps, giving local weighted sums T_k and chunk sums C_k, and
         sum_j j*B_j = sum_k T_k + m * sum_{k>=1} suffix_k(C),
     with log-depth strided tree and suffix sums and log2(m) doublings."""
-    W = buckets.x.shape[-1]
+    tail = curve.elem_tail
     half = 1 << (c - 1)
     nwin = buckets.x.shape[0]
     S = min(half, n_chunks)
@@ -341,22 +363,22 @@ def _weighted_sweep(curve: Curve, buckets: Jac, c: int,
     dev = buckets.x.device
 
     # (nwin, half) buckets j = 1..half -> (m, nwin*S) in scan order i = m..1
-    rev = Jac(*(t[:, 1:].reshape(nwin * S, m, W).flip(1).transpose(0, 1)
-                .contiguous() for t in buckets))
+    rev = Jac(*(t[:, 1:].reshape(nwin * S, m, *tail).flip(1)
+                .transpose(0, 1).contiguous() for t in buckets))
     s = t = curve.inf_jac((nwin * S,), device=dev)
     for i in range(m):
         s = curve.add(s, Jac(*(r[i] for r in rev)))
         t = curve.add(t, s)
 
     def window_slot0(p):
-        return Jac(*(a.reshape(nwin, S, W)[:, 0] for a in p))
+        return Jac(*(a.reshape(nwin, S, *tail)[:, 0] for a in p))
 
     sum_t = window_slot0(_strided_scan_add(curve, t, S, suffix=False))
     if S == 1:
         return sum_t
     suf = _strided_scan_add(curve, s, S, suffix=True)
     k0 = (torch.arange(nwin * S, device=dev) % S) == 0
-    suf = _sel(k0, curve.inf_jac((nwin * S,), device=dev), suf)
+    suf = curve._select(k0, curve.inf_jac((nwin * S,), device=dev), suf)
     w = window_slot0(_strided_scan_add(curve, suf, S, suffix=False))
     for _ in range(m.bit_length() - 1):  # * m (a power of two)
         w = curve.double(w)
@@ -364,7 +386,7 @@ def _weighted_sweep(curve: Curve, buckets: Jac, c: int,
 
 
 def _window_totals(curve: Curve, points: Affine, mags, negs, c: int) -> Jac:
-    """(nwin, N) digits -> per-window totals (nwin, W). Windows go in
+    """(nwin, N) digits -> per-window totals (nwin,). Windows go in
     groups of G so that a flat accumulate stays within ``MAX_FLAT`` lanes;
     the last group is padded with zero digits, as the JAX package pads
     it."""
@@ -383,17 +405,43 @@ def _window_totals(curve: Curve, points: Affine, mags, negs, c: int) -> Jac:
 
 
 def _fold_windows(curve: Curve, totals: Jac, c: int) -> Jac:
-    """Horner fold acc = sum_w 2^(cw) T_w, one ``jac_fold_windows``."""
-    ox, oy, oz = point_add.jac_fold_windows(
-        curve.spec.fp, curve.spec.a,
-        *(t.contiguous() for t in totals), c)
+    """Horner fold acc = sum_w 2^(cw) T_w, one ``jac_fold_windows`` (or
+    ``jac_fold_windows2`` over Fp2)."""
+    coords = (t.contiguous() for t in totals)
+    if curve._kernels2:
+        ox, oy, oz = point_add2.jac_fold_windows2(
+            curve.spec.fp, curve.fp.nr, *coords, c)
+    else:
+        ox, oy, oz = point_add.jac_fold_windows(
+            curve.spec.fp, curve.spec.a, *coords, c)
     return Jac(ox[0], oy[0], oz[0])
 
 
+def _level_kernels(curve: Curve):
+    """The (prep, finish) tree-level wrappers for the curve's field, with
+    their curve arguments bound (``_affine_levels``)."""
+    if curve._kernels2:
+        return (functools.partial(point_add2.affine_prep2, curve.spec.fp,
+                                  curve.fp.nr),
+                functools.partial(point_add2.affine_finish2, curve.spec.fp,
+                                  curve.fp.nr))
+    return (functools.partial(point_add.affine_prep, curve.spec.fp,
+                              curve.spec.a),
+            functools.partial(point_add.affine_finish, curve.spec.fp,
+                              curve.spec.a))
+
+
 def _resolve(spec_or_curve) -> Curve:
-    if isinstance(spec_or_curve, Curve):
-        return spec_or_curve
-    return curve_ops(spec_or_curve)
+    """A CurveSpec (G1) or a built Curve (G2 needs its tower engine, which
+    a bare spec cannot rebuild). Curves the MSM's kernels do not take
+    (over other extensions) raise."""
+    curve = (spec_or_curve if isinstance(spec_or_curve, Curve)
+             else curve_ops(spec_or_curve))
+    if curve.elem_tail is None:
+        raise NotImplementedError(
+            f"{curve.spec.name}: the MSM takes curves over a prime field or "
+            "over Fp2 with a small-int non-residue")
+    return curve
 
 
 def _msm_chunk(curve: Curve, points: Affine, scalars, c: int) -> Jac:
@@ -406,8 +454,9 @@ def msm(spec: CurveSpec, points: Affine, scalars: torch.Tensor,
         c: int | None = None) -> Jac:
     """MultiExp: sum_i scalars[i] * points[i] (reference multiexp.go:21).
 
-    points: affine (N, W) batch; scalars: plain Fr words (N, W). Returns
-    one Jacobian point (coordinates (W,)). Inputs longer than ``MAX_FLAT``
+    spec: a G1 CurveSpec or a Curve (``g2_curve`` for G2). points: affine
+    (N, *tail) batch; scalars: plain Fr words (N, W). Returns one Jacobian
+    point (coordinates (*tail,)). Inputs longer than ``MAX_FLAT``
     run in chunks of that many points whose sums are added (the
     reference's data split, multiexp.go:129-141, here bounding peak device
     memory); c is chosen from the whole input."""
@@ -429,8 +478,8 @@ def _bsm_table(curve: Curve, bx, by, c: int) -> Jac:
     """Signed-digit base table [inf, B, 2B, .., half*B] by doubling its
     length: T_2S = T_S ++ (T_S + [S]B), log2(half) batched adds."""
     half = 1 << (c - 1)
-    W = bx.shape[-1]
-    b1 = Jac(bx.reshape(1, W), by.reshape(1, W),
+    tail = curve.elem_tail
+    b1 = Jac(bx.reshape(1, *tail), by.reshape(1, *tail),
              curve.fp.ones((1,), device=bx.device))
     table = Jac(*(torch.cat(comp) for comp in
                   zip(curve.inf_jac((1,), device=bx.device), b1)))
@@ -438,7 +487,7 @@ def _bsm_table(curve: Curve, bx, by, c: int) -> Jac:
     while table.x.shape[0] < half:
         S = table.x.shape[0]
         sb = curve.add(sb, sb) if S > 2 else curve.add(b1, b1)
-        shifted = curve.add(table, Jac(*(t.expand(S, W) for t in sb)))
+        shifted = curve.add(table, Jac(*(t.expand(S, *tail) for t in sb)))
         # entry 0 is infinity: shifted[0] = [S]B (complete add)
         table = Jac(*(torch.cat([t, u]) for t, u in zip(table, shifted)))
     top = curve.add(sb, sb) if half > 1 else b1     # [half]B
@@ -455,7 +504,7 @@ def _bsm_scan(curve: Curve, c: int, table: Jac, scalars) -> Jac:
         for _ in range(c):
             acc = curve.double(acc)
         t = Jac(*(comp.index_select(0, mags[w]) for comp in table))
-        t = Jac(t.x, torch.where(negs[w][:, None], f.neg(t.y), t.y), t.z)
+        t = Jac(t.x, f.where(negs[w], f.neg(t.y), t.y), t.z)
         acc = curve.add(acc, t)
     return acc
 
@@ -467,13 +516,12 @@ def batch_scalar_mul(spec: CurveSpec, base: Affine, scalars: torch.Tensor,
     signed-digit window table shared by every lane, then nbits doublings
     and nbits/c table adds per lane.
 
-    base: one affine point (coordinates (W,) or (1, W)); scalars: plain Fr
-    words (N, W). Returns Jac (N, W)."""
+    base: one affine point (coordinates (*tail,) or (1, *tail)); scalars:
+    plain Fr words (N, W). Returns Jac (N, *tail)."""
     curve = _resolve(spec)
     n = scalars.shape[0]
     c = c or max(2, min(10, best_c(n)))
-    W = curve.spec.fp.n_words
-    table = _bsm_table(curve, base.x.reshape(W), base.y.reshape(W), c)
+    table = _bsm_table(curve, base.x, base.y, c)
     return _bsm_scan(curve, c, table, scalars)
 
 

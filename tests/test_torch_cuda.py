@@ -334,3 +334,169 @@ def test_pair_on_card_equals_golden(cuda):
                          g2.x[None], g2.y[None])
     assert vm.vm_execute.launches == before + 1
     assert gt_bytes.gt_to_bytes("bn254", z)[0].hex() == want
+
+
+# -- the G2 (Fp2) kernels, the G2 MSM and KZG ---------------------------------
+
+def g2_multiples(g2, ks, device):
+    """[k]G2 for small k > 0 by the G2 ladder, as Jacobian (n, 2, 8)."""
+    G = g2.generator_jac(device=device)
+    n = len(ks)
+    return g2.scalar_mul(Jac(*(c.expand(n, -1, -1) for c in G)),
+                         g2.fr.from_int(ks, mont=False, device=device),
+                         nbits=max(ks).bit_length())
+
+
+def g2_edge_batches(g2, n, seed, device):
+    """Two (n,) G2 Jacobian batches with P + P, P + (-P), P + inf,
+    inf + Q and inf + inf lanes among random sums."""
+    rng = random.Random(seed)
+    base = g2_multiples(g2, [rng.randrange(1, 1 << 12) for _ in range(n)],
+                        device)
+    other = g2_multiples(g2, [rng.randrange(1, 1 << 12) for _ in range(n)],
+                         device)
+    kind = torch.arange(n, device=device) % 8
+    inf = g2.inf_jac((n,), device=device)
+    P = g2._select((kind == 3) | (kind == 4), inf, base)
+    Q = g2._select(kind == 0, base, other)
+    Q = g2._select(kind == 1, g2.neg_jac(base), Q)
+    Q = g2._select((kind == 2) | (kind == 4), inf, Q)
+    return P, Q
+
+
+@pytest.mark.cuda
+def test_fp2_jac_kernels_match_plain(cuda):
+    from gnark_crypto_tpu_torch.field import point_add2
+
+    g2 = g2_curve("bn254", cuda)
+    fp, nr = g2.spec.fp, g2.fp.nr
+    P, Qb = g2_edge_batches(g2, 515, 6, cuda)
+    wrappers = (point_add2.jac_add2, point_add2.jac_double2)
+    before = [w.launches for w in wrappers]
+    got = point_add2.jac_add2(fp, nr, *P, *Qb)
+    dbl = point_add2.jac_double2(fp, nr, *P)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1]
+    for k, w in zip(got, point_add2.jac_add2_plain(fp, nr, *P, *Qb)):
+        assert torch.equal(k, w)
+    for k, w in zip(dbl, point_add2.jac_double2_plain(fp, nr, *P)):
+        assert torch.equal(k, w)
+    # the group law routes through the kernel and agrees with the composed
+    # Fp2 formulas
+    added = g2.add(P, Qb)
+    assert point_add2.jac_add2.launches == before[0] + 2
+    assert all(torch.equal(u, v) for u, v in
+               zip(added, g2._add_composed(P, Qb)))
+
+
+@pytest.mark.cuda
+def test_fp2_affine_level_and_fold_kernels_match_plain(cuda):
+    from gnark_crypto_tpu_torch.field import point_add2
+
+    g2 = g2_curve("bn254", cuda)
+    fp, nr = g2.spec.fp, g2.fp.nr
+    P, Qb = g2_edge_batches(g2, 1029, 7, cuda)
+    L, R = g2.to_affine(P), g2.to_affine(Qb)
+    den, num, bits = point_add2.affine_prep2(fp, nr, *L, *R)
+    wd, wn, wb = point_add2.affine_prep2_plain(fp, nr, *L, *R)
+    assert torch.equal(den, wd) and torch.equal(num, wn)
+    assert torch.equal(bits, wb)
+    dinv = pippenger._log_batch_inverse(g2.fp, den)
+    tb = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 8, size=(den.shape[0],)).astype(np.int32)).to(cuda)
+    args = (*R, *L, *R, *L, num, dinv, bits, tb)
+    for k, w in zip(point_add2.affine_finish2(fp, nr, *args),
+                    point_add2.affine_finish2_plain(fp, nr, *args)):
+        assert torch.equal(k, w)
+    T = Jac(*(c[:6].contiguous() for c in P))
+    before = point_add2.jac_fold_windows2.launches
+    got = point_add2.jac_fold_windows2(fp, nr, *T, 5)
+    assert point_add2.jac_fold_windows2.launches == before + 1
+    for k, w in zip(got, point_add2.jac_fold_windows2_plain(fp, nr, *T, 5)):
+        assert torch.equal(k, w)
+
+
+@pytest.mark.cuda
+def test_g2_msm_2e12_matches_identity(cuda):
+    """msm([i+1]G2, s) == [sum s_i (i+1) mod r]G2 by one G2 ladder."""
+    from gnark_crypto_tpu_torch.field import point_add2
+
+    g2 = g2_curve("bn254", cuda)
+    r = g2.spec.fr.modulus
+    n = 1 << 12
+    pts = g2.to_affine(g2_multiples(g2, list(range(1, n + 1)), cuda))
+    rng = random.Random(n)
+    ss = [rng.randrange(r) for _ in range(n)]
+    # at c = 5 the sweep needs no doubling, so jac_double2 does not launch
+    wrappers = [getattr(point_add2, k) for k in (
+        "affine_prep2", "affine_finish2", "jac_add2", "jac_fold_windows2")]
+    before = [w.launches for w in wrappers]
+    got = pippenger.msm(g2, pts, g2.fr.from_int(ss, mont=False, device=cuda),
+                        c=5)    # 51 windows x 4096 lanes: phase 1 runs
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    total = sum(s * (i + 1) for i, s in enumerate(ss)) % r
+    want = g2.scalar_mul(Jac(*(c[None] for c in g2.generator_jac(
+        device=cuda))), g2.fr.from_int([total], mont=False, device=cuda))
+    got_a = g2.to_affine(Jac(*(c[None] for c in got)))
+    want_a = g2.to_affine(want)
+    assert all(torch.equal(u, v) for u, v in zip(got_a, want_a))
+
+
+@pytest.mark.cuda
+def test_fp2_kernels_reject(cuda):
+    from gnark_crypto_tpu_torch.field import point_add2
+
+    g2 = g2_curve("bn254", cuda)
+    fp = g2.spec.fp
+    P = g2_multiples(g2, [1, 2, 3, 4], cuda)
+    with pytest.raises(ValueError):
+        point_add2.jac_add2(fp, -1, *P, P.x[:2], P.y[:2], P.z[:2])
+    with pytest.raises(ValueError):
+        point_add2.jac_double2(fp, -1, P.x[::2], P.y[::2], P.z[::2])
+    with pytest.raises(NotImplementedError):
+        point_add2.jac_double2(fp, -5, *P)
+    bls = g2_curve("bls12_381", cuda)  # 12-word Fp2
+    x = bls.fp.zeros((4,), device=cuda)
+    for fn, args in ((point_add2.jac_double2, (x, x, x)),
+                     (point_add2.affine_prep2, (x, x, x, x)),
+                     (point_add2.jac_fold_windows2, (x, x, x, 3))):
+        with pytest.raises(NotImplementedError):
+            fn(bls.spec.fp, bls.fp.nr, *args)
+    with pytest.raises(NotImplementedError):
+        bls.double(bls.inf_jac((2,), device=cuda))
+
+
+@pytest.mark.cuda
+def test_commit_open_verify_on_card(cuda):
+    """A 2^12 commit/open/verify on the card, against the alpha oracle."""
+    from gnark_crypto_tpu_torch.protocols import kzg
+
+    g1 = curve_ops(cs.get_curve("bn254_g1"))
+    r = g1.spec.fr.modulus
+    rng = random.Random(12)
+    alpha = rng.randrange(r)
+    n = 1 << 12
+    srs = kzg.new_srs("bn254", n, alpha, device=cuda)
+    coeffs = [rng.randrange(r) for _ in range(n)]
+    a = rng.randrange(r)
+    poly = g1.fr.from_int(coeffs, mont=False, device=cuda)
+    point = g1.fr.from_int([a], mont=False, device=cuda)
+    C = kzg.commit("bn254", srs.pk, poly)
+    proof = kzg.open_poly("bn254", srs.pk, poly, point)
+    p_alpha = p_a = 0
+    for c in reversed(coeffs):
+        p_alpha = (p_alpha * alpha + c) % r
+        p_a = (p_a * a + c) % r
+    q_alpha = (p_alpha - p_a) * pow(alpha - a, -1, r) % r
+    G = g1.generator_jac(device=cuda)
+    want = g1.to_affine(g1.scalar_mul(
+        Jac(*(c.expand(2, -1) for c in G)),
+        g1.fr.from_int([p_alpha, q_alpha], mont=False, device=cuda)))
+    assert aff_ints(g1, g1.from_affine(C)) == aff_ints(
+        g1, Jac(*(c[:1] for c in g1.from_affine(want))))
+    assert aff_ints(g1, g1.from_affine(proof.h)) == aff_ints(
+        g1, Jac(*(c[1:] for c in g1.from_affine(want))))
+    assert g1.fr.to_int(proof.claimed_value, mont=False) == [p_a]
+    assert bool(kzg.verify("bn254", C, proof, point, srs.vk))
+    bad = kzg.OpeningProof(proof.h, g1.fr.from_int(
+        [(p_a + 1) % r], mont=False, device=cuda))
+    assert not bool(kzg.verify("bn254", C, bad, point, srs.vk))
