@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``gnark_crypto_tpu_torch/csrc`` (nvcc, sm_90a),
-then drives the port's five ported paths through their public entry
+then drives the port's six ported paths through their public entry
 points and holds every result and every kernel against the plain PyTorch
 versions on the same card, bit for bit (the field is exact: the tolerance
 is 0):
@@ -32,7 +32,16 @@ is 0):
   with the claimed value changed, False; ``batch_open_single_point`` of 4
   polynomials and ``batch_verify_single_point``; and
   ``batch_verify_multi_points`` over 4 proofs at 4 points, True and, with
-  one proof's H swapped, False.
+  one proof's H swapped, False;
+* the small fields (``Domain``, ``fft``, ``fft_inverse`` over the f31 and
+  f64 engines; ``hashes.sis.rsis``, ``RSis.hash``, ``RSis.hash_many``):
+  the koalabear NTT at 2^20 (all four pairs, coset and not) and 2^24 (all
+  four pairs), the babybear NTT at 2^20 and the goldilocks NTT at 2^20
+  (with coset) and 2^24, DIF forward and the DIT inverse round trip; the
+  Ring-SIS hash ``rsis(f, 42, 9, 16, n)`` of 2^20 koalabear elements and
+  2^18 goldilocks elements below 2^63 (``bench.py:381-398``); and
+  ``RSis(koalabear, 42, 4, 8, 64).hash_many`` over 2048 columns of 64
+  elements (Vortex's column hash, ``protocols/vortex.py:54-58``).
 
 Phases:
 
@@ -49,14 +58,19 @@ Phases:
    on the 2048-pair chain's ``product`` launch and on a random program of
    all six ops; the five Fp2 kernels on the inputs they received in a
    second 2^16 G2 MSM (the fold on its first 4 windows); the KZG results
-   against alpha-oracle points and their expected verdicts;
+   against alpha-oracle points and their expected verdicts; the four
+   small-field kernels (both forms of ``ntt_f31_stage``) on every distinct
+   call of the small-field path, each small-field transform against its
+   plain stages, round trips and Python-integer samples, and each SIS
+   result against the same pipeline on the plain versions;
 3. timing with CUDA events: each kernel, its plain version and its bound
    (bytes over 3.35 TB/s, or 32-bit multiply-adds over the INT32 rate,
    whichever is larger); whole transforms; the G1 and G2 MSMs at 2^20
    split into their steps (host clock, synchronised after each); each VM
    program launch of the pairing path beside its serial product count;
    pairs/s at 2048 and the batch-2 ``pairing_check`` latency; each G2 MSM
-   and KZG call (host clock, synchronised).
+   and KZG call (host clock, synchronised); the small-field transforms'
+   elems/s, SIS elems/s and ``hash_many`` columns/s.
 
 Prints the card's name and power limit, the build time, a ``timings`` JSON
 line, a ``kernels`` JSON line and, last, the device line. Exits non-zero,
@@ -1074,6 +1088,301 @@ class KzgSlice:
                 "s": float(np.median(per)), "runs": per}
 
 
+class SmallFieldSlice:
+    """The small-field path: the koalabear, babybear and goldilocks NTTs
+    (``Domain``, ``fft``, ``fft_inverse``) and the Ring-SIS hash (``rsis``,
+    ``RSis.hash``, ``RSis.hash_many``), on the four small-field kernels."""
+
+    KERNELS = ("ntt_f31_stage", "ntt_f31_stage_r4", "ntt_f31_block",
+               "ntt_f64_stage", "ntt_f64_block")
+    SOURCES = {
+        "ntt_f31_stage": ("gnark_crypto_tpu_torch/csrc/ntt_f31.cu",
+                          "gnark_crypto_tpu/ntt/pallas_ntt_f31.py:119"),
+        "ntt_f31_stage_r4": ("gnark_crypto_tpu_torch/csrc/ntt_f31.cu",
+                             "gnark_crypto_tpu/ntt/pallas_ntt_f31.py:190"),
+        "ntt_f31_block": ("gnark_crypto_tpu_torch/csrc/ntt_f31.cu",
+                          "gnark_crypto_tpu/ntt/pallas_ntt_f31.py:253"),
+        "ntt_f64_stage": ("gnark_crypto_tpu_torch/csrc/ntt_f64.cu",
+                          "gnark_crypto_tpu/ntt/pallas_ntt_f64.py:191"),
+        "ntt_f64_block": ("gnark_crypto_tpu_torch/csrc/ntt_f64.cu",
+                          "gnark_crypto_tpu/ntt/pallas_ntt_f64.py:256"),
+    }
+    # 32-bit multiply-adds per product (csrc/ntt_f31.cu: a*b, m, m*q;
+    # csrc/ntt_f64.cu: 4 for a*b, 3 for m, 4 for m*q) and bytes per element
+    MADS = {1: 3, 2: 11}
+    ALL4 = (("DIF", False), ("DIF", True), ("DIT", False), ("DIT", True))
+    DIF_FWD = (("DIF", False),)
+
+    def __init__(self, dev, nprng, logs=(20, 24), sis_logs=(20, 18),
+                 cols=2048):
+        import numpy as np
+        import torch
+
+        from gnark_crypto_tpu_torch.field import api
+        from gnark_crypto_tpu_torch.ntt import radix2_f31, radix2_f64
+        from gnark_crypto_tpu_torch.specs import field as fs
+
+        self.torch, self.np, self.dev, self.nprng = torch, np, dev, nprng
+        self.api, self.fs = api, fs
+        self.mods = {1: radix2_f31, 2: radix2_f64}   # by n_words
+        where = {"ntt_f31_stage": (radix2_f31, "stage"),
+                 "ntt_f31_stage_r4": (radix2_f31, "stage_r4"),
+                 "ntt_f31_block": (radix2_f31, "block"),
+                 "ntt_f64_stage": (radix2_f64, "stage"),
+                 "ntt_f64_block": (radix2_f64, "block")}
+        self.wrappers = {k: getattr(m, a) for k, (m, a) in where.items()}
+        self.plain = {k: getattr(m, f"{a}_plain")
+                      for k, (m, a) in where.items()}
+        self.recorders = {k: Recorder(m, a, keep_all=True)
+                          for k, (m, a) in where.items()}
+        lo, hi = logs
+        # (field, log n) -> (the (decimation, inverse) pairs run on the
+        # input, whether the coset forms run too)
+        self.plan = {("koalabear", lo): (self.ALL4, True),
+                     ("koalabear", hi): (self.ALL4, False),
+                     ("babybear", lo): (self.DIF_FWD, False),
+                     ("goldilocks", lo): (self.DIF_FWD, True),
+                     ("goldilocks", hi): (self.DIF_FWD, False)}
+        self.logs, self.sis_logs, self.cols = logs, sis_logs, cols
+        self.inputs = {key: self.random_elems(key[0], 1 << key[1])
+                       for key in self.plan}
+        q31 = fs.KOALABEAR.modulus
+        self.sis_in = {
+            "koalabear": torch.from_numpy(nprng.integers(
+                0, q31, size=1 << sis_logs[0], dtype=np.int64).astype(
+                    np.int32)).to(dev),
+            # goldilocks inputs below 2^63, as bench.py:396-398 makes them
+            "goldilocks": torch.from_numpy(nprng.integers(
+                0, 1 << 63, size=1 << sis_logs[1], dtype=np.int64).view(
+                    np.int32).reshape(-1, 2).copy()).to(dev)}
+        self.cols_in = torch.from_numpy(nprng.integers(
+            0, q31, size=(cols, 64), dtype=np.int64).astype(np.int32)).to(dev)
+        self.out, self.back, self.doms, self.sis, self.hashes = {}, {}, {}, \
+            {}, {}
+        self.setup_s = {}
+
+    def random_elems(self, field, n: int):
+        """n random canonical elements (every canonical value is a valid
+        Montgomery form)."""
+        np, spec = self.np, self.fs.get_field(field)
+        if spec.n_words == 1:
+            v = self.nprng.integers(0, spec.modulus, size=n, dtype=np.int64)
+            return self.torch.from_numpy(v.astype(np.int32)).to(self.dev)
+        v = self.nprng.integers(0, spec.modulus, size=n, dtype=np.uint64)
+        return self.torch.from_numpy(
+            v.view(np.int32).reshape(n, 2).copy()).to(self.dev)
+
+    # -- phase 1 -------------------------------------------------------------
+    def main_path(self):
+        from gnark_crypto_tpu_torch.hashes.sis import RSis, rsis
+        from gnark_crypto_tpu_torch.ntt import fft
+        from gnark_crypto_tpu_torch.ntt.domain import Domain
+
+        torch = self.torch
+        for r in self.recorders.values():
+            r.install()
+            r.on = True
+        t0 = time.perf_counter()
+        for (field, k), (pairs, coset) in self.plan.items():
+            a = self.inputs[field, k]
+            dom = Domain(self.api.for_field(field), 1 << k, with_coset=coset,
+                         device=self.dev)
+            self.doms[field, k] = dom
+            for dec, inv in pairs:
+                f = fft.fft_inverse if inv else fft.fft
+                for cs in ((False, True) if coset else (False,)):
+                    self.out[field, k, dec, inv, cs] = f(dom, a, dec, cs)
+            self.back[field, k, "DIF"] = fft.fft_inverse(
+                dom, self.out[field, k, "DIF", False, False], fft.DIT)
+            if coset:
+                self.back[field, k, "coset"] = fft.fft_inverse(
+                    dom, self.out[field, k, "DIF", False, True], fft.DIT,
+                    coset=True)
+            if ("DIT", False) in pairs:
+                self.back[field, k, "DIT"] = fft.fft_inverse(
+                    dom, self.out[field, k, "DIT", False, False], fft.DIF)
+        torch.cuda.synchronize()
+        self.ntt_s = time.perf_counter() - t0
+        for field, lg in zip(("koalabear", "goldilocks"), self.sis_logs):
+            t1 = time.perf_counter()
+            inst = rsis(field, 42, 9, 16, 1 << lg, device=self.dev)
+            torch.cuda.synchronize()
+            self.setup_s[field] = time.perf_counter() - t1
+            self.sis[field] = inst
+            self.hashes[field] = inst.hash(self.sis_in[field])
+        t1 = time.perf_counter()
+        self.vortex = RSis(self.fs.KOALABEAR, 42, 4, 8, 64, device=self.dev)
+        torch.cuda.synchronize()
+        self.setup_s["vortex"] = time.perf_counter() - t1
+        self.hashes["vortex"] = self.vortex.hash_many(self.cols_in)
+        torch.cuda.synchronize()
+        for r in self.recorders.values():
+            r.on = False
+            r.remove()
+        return time.perf_counter() - t0
+
+    # -- phase 2 -------------------------------------------------------------
+    def plain_transform(self, dom, a, dec, inv, coset):
+        """Plain stages and plain products only."""
+        from gnark_crypto_tpu_torch.ntt import fft
+
+        eng, mod = dom.eng, self.mods[dom.spec.n_words]
+        if not inv:
+            if coset:
+                t = dom.coset_table
+                a = eng.mul(a, fft.bit_reverse(t) if dec == "DIT" else t)
+            return mod.run_plain(dom, a, dec, False)
+        a = mod.run_plain(dom, a, dec, True)
+        scale = dom.cardinality_inv
+        if coset:
+            t = dom.coset_table_inv
+            scale = eng.mul(fft.bit_reverse(t) if dec == "DIF" else t, scale)
+        return eng.mul(a, scale)
+
+    def sis_plain(self, inst, vs):
+        """The hash pipeline on the plain versions: (B, N) -> (B, d)."""
+        eng, dom = inst.eng, inst.domain
+        mod = self.mods[dom.spec.n_words]
+        tail = tuple(vs.shape[2:])
+        m = inst._decompose(vs)
+        B, P, d = m.shape[:3]
+        rows = eng.mul(eng.reshape(m, (B * P, d)), dom.coset_table)
+        kf = mod.block_plain(dom.spec, rows.reshape(-1, *tail),
+                             dom.twiddles0, 0, dom.k, False)
+        acc = eng.mul(kf.reshape(B, P, d, *tail), inst.ag[None])
+        res = eng.sum_reduce(acc.transpose(0, 1)).contiguous()
+        out = mod.block_plain(dom.spec, res.reshape(-1, *tail),
+                              dom.twiddles0_inv, 0, dom.k, True)
+        scale = eng.mul(dom.coset_table_inv, dom.cardinality_inv)
+        return eng.from_mont(eng.mul(out.reshape(B, d, *tail), scale))
+
+    def call_key(self, name, args):
+        """What makes a recorded call distinct: shape, stage, direction."""
+        spec, x, _tw, a3, a4, dit = args
+        return (name, spec.name, tuple(x.shape), a3, a4, dit)
+
+    def checks(self, compare, check):
+        torch = self.torch
+        from gnark_crypto_tpu_torch.ntt.domain import bitrev_perm
+
+        # each kernel against its plain version on the inputs it got on the
+        # path, once per distinct call (shape, stage, direction)
+        self.kargs = {}
+        for name, rec in self.recorders.items():
+            seen = set()
+            for args in rec.calls:
+                key = self.call_key(name, args)
+                if key in seen:
+                    continue
+                seen.add(key)
+                self.kargs.setdefault(name, []).append(args)
+                compare(name, self.wrappers[name](*args),
+                        self.plain[name](*args),
+                        f"{args[0].name} {tuple(args[1].shape)} "
+                        f"args {args[3:]}")
+            rec.calls = []
+        # each transform against its plain stages, round trips, samples
+        for (field, k, dec, inv, cs), got in self.out.items():
+            dom, a = self.doms[field, k], self.inputs[field, k]
+            check(torch.equal(got, self.plain_transform(dom, a, dec, inv,
+                                                        cs)),
+                  f"{field} 2^{k} {dec} inverse={inv} coset={cs} == plain "
+                  "stages")
+        for (field, k, what), got in self.back.items():
+            check(torch.equal(got, self.inputs[field, k]),
+                  f"{field} 2^{k} round trip ({what}) == a")
+        rng = random.Random(SEED)
+        for field, k in self.plan:
+            if k != self.logs[0]:
+                continue
+            dom, eng = self.doms[field, k], self.api.for_field(field)
+            q = eng.spec.modulus
+            a_int = eng.to_int(self.inputs[field, k])
+            out = self.out[field, k, "DIF", False, False]
+            rev = bitrev_perm(dom.n)
+            for i in rng.sample(range(dom.n), 2):
+                wi = pow(dom.generator_int, i, q)
+                acc = 0
+                for c in reversed(a_int):   # Horner: sum a_j w^(ij)
+                    acc = (acc * wi + c) % q
+                check(eng.to_int(out[int(rev[i])]) == acc,
+                      f"{field} 2^{k} DIF output at frequency {i} == "
+                      "Horner sum")
+        # each hash against the same pipeline on the plain versions
+        for field, inst in self.sis.items():
+            v = self.sis_in[field]
+            want = self.sis_plain(inst, v[None])[0]
+            got = self.hashes[field]
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"SIS {field} hash of {v.shape[0]} elements == plain "
+                  "pipeline")
+        got = self.hashes["vortex"]
+        want = self.sis_plain(self.vortex, self.cols_in)
+        check(got.shape == (self.cols, 16) and torch.equal(got, want),
+              f"SIS hash_many of {self.cols} columns of 64 == plain "
+              "pipeline")
+        check(torch.equal(got[5], self.vortex.hash(self.cols_in[5])),
+              "SIS hash_many column 5 == hash of that column")
+
+    # -- phase 3 -------------------------------------------------------------
+    def bound_of(self, name, args):
+        """(bytes, multiply-adds) of one call: each element read and written
+        once, each twiddle the call reads read once."""
+        spec, x, _tw, a3, a4, _dit = args
+        nw = spec.n_words
+        eb, mm = 4 * nw, self.MADS[nw]
+        n = x.shape[0]
+        if name.endswith("block"):
+            log_n = a4
+            return 2 * eb * n + eb * ((1 << log_n) >> 1), mm * log_n * n // 2
+        k, s = a3, a4
+        half = n >> (s + 1)
+        if name.endswith("r4"):
+            return 2 * eb * n + eb * half, mm * n
+        return 2 * eb * n + eb * half, mm * n // 2
+
+    def timings(self, cuda_ms, timings, kernel_rows):
+        from gnark_crypto_tpu_torch.ntt import fft
+
+        for name, calls in self.kargs.items():
+            for args in calls:
+                if args[5]:
+                    continue          # forward calls: one of each shape
+                shape = tuple(args[1].shape)
+                b_ms, b_by = bound(*self.bound_of(name, args))
+                row = {"ms": cuda_ms(lambda: self.wrappers[name](*args),
+                                     reps=10),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "elements": shape[0], "args": list(args[3:5])}
+                row["plain_ms"] = cuda_ms(lambda: self.plain[name](*args),
+                                          reps=1, rounds=1)
+                timings[f"{name} {args[0].name} {shape[0]} "
+                        f"args {args[3]},{args[4]}"] = row
+                kernel_rows.setdefault(name, row)
+        for (field, k), (pairs, _) in self.plan.items():
+            dom, a = self.doms[field, k], self.inputs[field, k]
+            for dec, inv in (("DIF", False), ("DIT", True)):
+                f = fft.fft_inverse if inv else fft.fft
+                ms = cuda_ms(lambda: f(dom, a, dec), reps=5)
+                timings[f"fft {field} {dec} inverse={inv} 2^{k}"] = {
+                    "ms": ms, "elems_per_s": dom.n / (ms / 1e3)}
+            ms = cuda_ms(lambda: self.plain_transform(dom, a, "DIF", False,
+                                                      False),
+                         reps=1, rounds=1)
+            timings[f"plain stages {field} DIF forward 2^{k}"] = {"ms": ms}
+        for field, inst in self.sis.items():
+            v = self.sis_in[field]
+            ms = cuda_ms(lambda: inst.hash(v), reps=5)
+            timings[f"sis {field} hash of {v.shape[0]}"] = {
+                "ms": ms, "elems_per_s": v.shape[0] / (ms / 1e3),
+                "key_setup_s": self.setup_s[field]}
+        ms = cuda_ms(lambda: self.vortex.hash_many(self.cols_in), reps=5)
+        timings[f"sis koalabear hash_many {self.cols} columns of 64"] = {
+            "ms": ms, "columns_per_s": self.cols / (ms / 1e3),
+            "key_setup_s": self.setup_s["vortex"]}
+        timings["small-field NTT path (host clock)"] = {"s": self.ntt_s}
+
+
 def main() -> int:
     import torch
 
@@ -1116,13 +1425,15 @@ def main() -> int:
     pairing = PairingSlice(dev, nprng)
     g2msm = G2MsmSlice(dev, nprng)
     kzg = KzgSlice(dev, nprng)
+    small = SmallFieldSlice(dev, np.random.default_rng(SEED + 6))
     ntt_kernels = ("mont_mul", "ntt_radix2_stage", "ntt_radix2_block",
                    "ntt_four_step")
     wrappers = {"mont_mul": kernels.mont_mul,
                 "ntt_radix2_stage": radix2.stage,
                 "ntt_radix2_block": radix2.block,
                 "ntt_four_step": four_step.sub_ntt, **msm.wrappers,
-                "vm_execute": vm.vm_execute, **g2msm.wrappers}
+                "vm_execute": vm.vm_execute, **g2msm.wrappers,
+                **small.wrappers}
 
     def drive(path: str, run, kernel_names) -> dict:
         """Counts to 0, the path, counts read: {kernel: launches}."""
@@ -1177,8 +1488,9 @@ def main() -> int:
     pair_counts = drive("pairing", pairing.main_path, pairing.KERNELS)
     g2_counts = drive("G2 MSM", g2msm.main_path, g2msm.KERNELS)
     kzg_counts = drive("KZG", kzg.main_path, kzg.KERNELS)
+    small_counts = drive("small fields", small.main_path, small.KERNELS)
     path_counts = (ntt_counts, msm_counts, pair_counts, g2_counts,
-                   kzg_counts)
+                   kzg_counts, small_counts)
     launches = {name: sum(c[name] for c in path_counts) for name in wrappers}
 
     # ---------------------------------------------------------------- phase 2
@@ -1287,6 +1599,7 @@ def main() -> int:
     pairing.checks(compare, check)
     g2msm.checks(compare, check)
     kzg.checks(compare, check)
+    small.checks(compare, check)
 
     # ---------------------------------------------------------------- phase 3
     def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
@@ -1380,6 +1693,7 @@ def main() -> int:
     pairing.timings(cuda_ms, timings, kernel_rows)
     g2msm.timings(cuda_ms, timings, kernel_rows)
     kzg.timings(cuda_ms, timings, kernel_rows)
+    small.timings(cuda_ms, timings, kernel_rows)
 
     kernel_line = []
     sources = {
@@ -1416,6 +1730,7 @@ def main() -> int:
         "jac_fold_windows2": (
             "gnark_crypto_tpu_torch/csrc/point_add2.cu",
             "gnark_crypto_tpu/field/pallas/point_add2.py:367"),
+        **SmallFieldSlice.SOURCES,
     }
     for name in wrappers:
         r = kernel_rows[name]

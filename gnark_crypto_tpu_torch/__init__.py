@@ -2,31 +2,38 @@
 (``gnark_crypto_tpu``).
 
 Same registries and public operations as the JAX package, with elements as
-``int32[..., W]`` tensors of 32-bit Montgomery words (R = 2^(32W), gnark's
-own radix) and hand-written CUDA kernels for Hopper (``csrc/``). Every
-entry point runs where its input tensor lives; constructors default to
-``device="cuda"``. Plain PyTorch versions of every kernel serve CPU tensors.
+``int32`` tensors: ``int32[..., W]`` 32-bit Montgomery words (R = 2^(32W),
+gnark's own radix) for the multi-word fields and goldilocks (W = 2),
+``int32[...]`` for koalabear and babybear (R = 2^32). Hand-written CUDA
+kernels for Hopper live in ``csrc/``. Every entry point runs where its
+input tensor lives; constructors default to ``device="cuda"``. Plain
+PyTorch versions of every kernel serve CPU tensors.
 
 Ported so far (see ROADMAP.md for the rest):
   specs/      field and curve constant registries
-  field/      Montgomery word engine; mont_mul, exp_const, point (Fp and
-              Fp2) and VM kernels (field/vm.py: the straight-line program
-              executor)
-  ntt/        radix-2 domains, radix-2 and four-step NTT kernels
+  field/      Montgomery word engine; the small-field engines (f31.py:
+              koalabear, babybear; f64.py: goldilocks); mont_mul,
+              exp_const, point (Fp and Fp2) and VM kernels (field/vm.py:
+              the straight-line program executor)
+  ntt/        radix-2 domains over any engine; radix-2 and four-step NTT
+              kernels (bn254), the f31 and f64 NTT kernels
+              (radix2_f31.py, radix2_f64.py); extension-vector NTT
+              (fftext.py)
   curve/      Jacobian group law (G1 on the Fp point kernels; G2 over Fp2
               in curve/g2.py, on the Fp2 point kernels); GLV scalar
               splitting (curve/glv.py)
   msm/        G1 and G2 Pippenger MSM (batch-affine bucket tree)
   towers/     Fp2/Fp6/Fp12 extension engines, the BN/BLS12 tower and its
-              symbolic twin that assembles VM programs
+              symbolic twin that assembles VM programs; the small-field
+              E2/E4/E6 towers (smallfield.py)
   pairing/    bn254/bls12 optimal ate pairing as VM programs; the api facade
   protocols/  KZG commitment: SRS, commit, open, verify, batch forms
-  hashes/     Fiat-Shamir transcript (host)
+  hashes/     Fiat-Shamir transcript (host); the Ring-SIS hash (sis.py)
   io/         gnark GT byte codec; point encoder (io/marshal.py)
   utils/      kernel build (utils/build.py); log-depth scans
               (utils/scans.py)
-  convert.py  JAX limb arrays (elements, extension elements, points) <->
-              port word tensors
+  convert.py  JAX arrays (elements, extension elements, points; small
+              fields as bit views) <-> port tensors
 """
 
 # curve ID registry (ecc.ID analogue)

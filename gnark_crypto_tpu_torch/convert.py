@@ -16,6 +16,13 @@ writes, and the reverse. A curve point, G1 or G2, crosses coordinate by
 coordinate (:func:`point_from_jax`, :func:`point_to_jax`); scalars cross
 with ``mont_form=False``.
 
+The small fields use the same R on both sides (2^32 for koalabear and
+babybear, 2^64 for goldilocks), so their elements cross as bit views:
+``uint32 (...)`` <-> ``int32 (...)`` for the f31 engine, ``uint32 (..., 2)``
+<-> ``int32 (..., 2)`` for goldilocks (:func:`from_jax_small`,
+:func:`to_jax_small`; :func:`from_jax_limbs` and :func:`to_jax_limbs` send
+small-field specs there).
+
 Only numpy crosses the boundary, so this module imports nothing of JAX.
 """
 
@@ -36,10 +43,34 @@ def _limbs_to_ints(spec: FieldSpec, limbs: np.ndarray) -> list[int]:
             for row in rows]
 
 
+def _is_small(spec: FieldSpec) -> bool:
+    return spec.limb_bits == 32
+
+
+def from_jax_small(spec: FieldSpec, arr, device=mont.DEFAULT_DEVICE
+                   ) -> torch.Tensor:
+    """A JAX small-field array (uint32, any form) -> the port's int32
+    tensor of the same bits and shape."""
+    if not _is_small(spec):
+        raise ValueError(f"{spec.name} is not a small field")
+    arr = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32))
+    return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+
+
+def to_jax_small(spec: FieldSpec, x: torch.Tensor) -> np.ndarray:
+    """The port's small-field tensor -> uint32 numpy of the same bits."""
+    if not _is_small(spec):
+        raise ValueError(f"{spec.name} is not a small field")
+    return np.ascontiguousarray(
+        x.detach().to("cpu").numpy().astype(np.int32)).view(np.uint32)
+
+
 def from_jax_limbs(spec: FieldSpec, limbs: np.ndarray, mont_form: bool = True,
                    device=mont.DEFAULT_DEVICE) -> torch.Tensor:
     """JAX limbs (Montgomery w.r.t. 2^(bL) when ``mont_form``) -> port words
     (Montgomery w.r.t. 2^(32W)), same leading shape."""
+    if _is_small(spec):
+        return from_jax_small(spec, limbs, device=device)
     limbs = np.asarray(limbs)
     q = spec.modulus
     vals = _limbs_to_ints(spec, limbs)
@@ -52,7 +83,10 @@ def from_jax_limbs(spec: FieldSpec, limbs: np.ndarray, mont_form: bool = True,
 
 def to_jax_limbs(spec: FieldSpec, x: torch.Tensor, mont_form: bool = True
                  ) -> np.ndarray:
-    """Port words -> canonical JAX limbs (int32 numpy), same leading shape."""
+    """Port words -> canonical JAX limbs (int32 numpy), same leading shape
+    (small fields: uint32 numpy of the same bits)."""
+    if _is_small(spec):
+        return to_jax_small(spec, x)
     q = spec.modulus
     vals = mont.to_int(spec, x.reshape(-1, spec.n_words), mont=mont_form)
     if mont_form:

@@ -3,9 +3,11 @@
 Counterpart of ``gnark_crypto_tpu/ntt/domain.py`` (reference
 ``ecc/bn254/fr/fft/domain.go``): the same integer constants, twiddles
 ``w^j`` with the per-stage tables as strided views of the stage-0 table, the
-coset tables ``u^i``, and gnark's byte layout. Tables live on the domain's
-device and are built there with log-doubling multiplies, which are
-``mont_mul`` kernel launches on the card.
+coset tables ``u^i``, and gnark's byte layout. A domain works over any
+field engine of ``field/api.py`` (the word engine, f31, f64), given as the
+engine or as its spec. Tables live on the domain's device and are built
+there with log-doubling multiplies through the engine (for bn254,
+``mont_mul`` kernel launches on the card).
 """
 
 from __future__ import annotations
@@ -16,7 +18,14 @@ import numpy as np
 import torch
 
 from gnark_crypto_tpu_torch.field import mont
-from gnark_crypto_tpu_torch.specs.field import FieldSpec
+from gnark_crypto_tpu_torch.field.api import FieldEngine, for_spec
+
+
+def engine(spec_or_eng) -> FieldEngine:
+    """The field engine of a spec, or the engine itself."""
+    if isinstance(spec_or_eng, FieldEngine):
+        return spec_or_eng
+    return for_spec(spec_or_eng)
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,32 +39,35 @@ def bitrev_perm(n: int) -> np.ndarray:
     return rev
 
 
-def exp_table(spec: FieldSpec, w: torch.Tensor, n: int) -> torch.Tensor:
+def exp_table(spec_or_eng, w: torch.Tensor, n: int) -> torch.Tensor:
     """[w^0, ..., w^(n-1)] (Montgomery) in log2(n) masked full-width muls:
     table[i] = prod over the set bits b of i of w^(2^b). (Reference
     ``BuildExpTable``, domain.go:300.)"""
     if n & (n - 1) or n < 1:
         raise ValueError("table size must be a power of two")
-    table = mont.ones(spec, (n,), device=w.device)
+    eng = engine(spec_or_eng)
+    table = eng.ones((n,), device=w.device)
     idx = torch.arange(n, device=w.device)
-    wp = w.reshape(1, spec.n_words)  # w^(2^bit)
+    wp = eng.reshape(w, (1,))  # w^(2^bit)
     for bit in range(n.bit_length() - 1):
         bit_set = ((idx >> bit) & 1) == 1
-        table = mont.select(spec, bit_set, mont.mul(spec, table, wp), table)
-        wp = mont.square(spec, wp)
+        table = eng.where(bit_set, eng.mul(table, wp), table)
+        wp = eng.square(wp)
     return table
 
 
 class Domain:
-    """Radix-2 evaluation domain of size 2^k (multi-word fields).
+    """Radix-2 evaluation domain of size 2^k over any field engine.
 
     Mirrors the reference Domain: Generator (primitive n-th root),
     GeneratorInv, CardinalityInv, FrMultiplicativeGen (coset shift u),
     twiddle and coset tables (``domain.go:24-58``). ``device`` holds every
     table (default: the card)."""
 
-    def __init__(self, spec: FieldSpec, n: int, shift: int | None = None,
+    def __init__(self, spec_or_eng, n: int, shift: int | None = None,
                  with_coset: bool = True, device=mont.DEFAULT_DEVICE):
+        eng = engine(spec_or_eng)
+        spec = eng.spec
         if n < 1 or n & (n - 1):
             raise ValueError("cardinality must be a power of two")
         k = n.bit_length() - 1
@@ -64,6 +76,7 @@ class Domain:
                 f"{spec.name}: 2-adicity {spec.two_adicity} < log2(n)={k}")
         if spec.two_adic_root is None:
             raise ValueError(f"{spec.name} has no configured 2-adic root")
+        self.eng = eng
         self.spec = spec
         self.n = n
         self.k = k
@@ -82,11 +95,11 @@ class Domain:
         self.shift_int = u % q
         self.shift_inv_int = pow(self.shift_int, -1, q)
 
-        self.generator = mont.from_int(spec, self.generator_int, device=device)
-        self.generator_inv = mont.from_int(spec, self.generator_inv_int,
-                                           device=device)
-        self.cardinality_inv = mont.from_int(spec, self.cardinality_inv_int,
-                                             device=device)
+        self.generator = eng.from_int(self.generator_int, device=device)
+        self.generator_inv = eng.from_int(self.generator_inv_int,
+                                          device=device)
+        self.cardinality_inv = eng.from_int(self.cardinality_inv_int,
+                                            device=device)
 
         # stage-0 twiddles w^j, j < n/2; stage s reads t0[::2^s]. Built
         # lazily: the four-step path never reads them, and at 2^24 each is
@@ -97,10 +110,9 @@ class Domain:
         self.tables: dict = {}
         if with_coset:
             self.coset_table = exp_table(
-                spec, mont.from_int(spec, self.shift_int, device=device), n)
+                eng, eng.from_int(self.shift_int, device=device), n)
             self.coset_table_inv = exp_table(
-                spec, mont.from_int(spec, self.shift_inv_int, device=device),
-                n)
+                eng, eng.from_int(self.shift_inv_int, device=device), n)
         else:
             self.coset_table = None
             self.coset_table_inv = None
@@ -108,14 +120,14 @@ class Domain:
     @property
     def twiddles0(self) -> torch.Tensor:
         if self._twiddles0 is None:
-            self._twiddles0 = exp_table(self.spec, self.generator,
+            self._twiddles0 = exp_table(self.eng, self.generator,
                                         max(self.n // 2, 1))
         return self._twiddles0
 
     @property
     def twiddles0_inv(self) -> torch.Tensor:
         if self._twiddles0_inv is None:
-            self._twiddles0_inv = exp_table(self.spec, self.generator_inv,
+            self._twiddles0_inv = exp_table(self.eng, self.generator_inv,
                                             max(self.n // 2, 1))
         return self._twiddles0_inv
 
@@ -139,11 +151,12 @@ class Domain:
         return out + bytes([1 if with_precompute else 0])
 
 
-def domain_from_bytes(spec: FieldSpec, buf: bytes,
+def domain_from_bytes(spec_or_eng, buf: bytes,
                       device=mont.DEFAULT_DEVICE) -> Domain:
     """Parse a gnark fft.Domain blob (domain.go:381 ReadFrom): rebuild the
     domain from (cardinality, shift) and check that the stored generator
     chain matches the field's 2-adic tower (corruption detection)."""
+    spec = engine(spec_or_eng).spec
     nb = spec.n_bytes
     if len(buf) < 8 + 5 * nb + 1:
         raise ValueError("domain blob too short")
@@ -153,7 +166,7 @@ def domain_from_bytes(spec: FieldSpec, buf: bytes,
     card_inv, gen, gen_inv, shift, shift_inv = vals
     if any(v >= spec.modulus for v in vals):
         raise ValueError("non-canonical domain element")
-    dom = Domain(spec, n, shift=shift, device=device)
+    dom = Domain(spec_or_eng, n, shift=shift, device=device)
     if (dom.generator_int != gen or dom.generator_inv_int != gen_inv
             or dom.cardinality_inv_int != card_inv
             or dom.shift_inv_int != shift_inv):

@@ -5,10 +5,15 @@ ints, computed once at registry time. The moduli, generators and 2-adic roots
 are those of gnark-crypto (``internal/generator/config/*.go`` and
 ``internal/generator/field/generator_fft.go``).
 
-Element format of this engine: ``int32[..., W]`` tensors holding the
-little-endian 32-bit words of ``x * 2**(32*W) mod q``, always canonical
-(< q). ``W = 2 * ceil(bits / 64)``, so ``R = 2**(32*W)`` is gnark's own
-Montgomery radix (four 64-bit words for bn254: R = 2**256).
+Element format of the word engine (``field/mont.py``): ``int32[..., W]``
+tensors holding the little-endian 32-bit words of ``x * 2**(32*W) mod q``,
+always canonical (< q). ``W = 2 * ceil(bits / 64)`` above 32 bits, so
+``R = 2**(32*W)`` is gnark's own Montgomery radix (four 64-bit words for
+bn254: R = 2**256; two 32-bit words for goldilocks: R = 2**64). A modulus
+of at most 32 bits takes ``W = 1``, so R = 2**32 for koalabear and
+babybear, as gnark's 31-bit fields and the JAX engine have it. The small
+fields have engines of their own (``field/f31.py``: one int32 per element;
+``field/f64.py``: the two words of goldilocks), which keep this R.
 
 ``limb_bits`` and ``n_limbs`` describe the JAX engine's limb layout
 (``int32[..., L]`` limbs of ``limb_bits`` bits, radix ``2**(limb_bits*L)``);
@@ -112,7 +117,7 @@ def make_field_spec(
             limb_bits = 11
     if n_limbs is None:
         n_limbs = 1 if nbits <= limb_bits else -(-(nbits + 1) // limb_bits)
-    n_words = 2 * -(-nbits // 64)
+    n_words = 1 if nbits <= 32 else 2 * -(-nbits // 64)
     r = (1 << (32 * n_words)) % modulus
     s = _two_adicity(modulus - 1)
     if two_adic_root is None and generator is not None:
@@ -253,7 +258,7 @@ STARK_FP = register(make_field_spec(
     3618502788666131213697322783095070105623107215331596699973092056135872020481,
 ))
 
-# -- standalone small fields (engines not ported yet: field/api.py) -----------
+# -- standalone small fields (engines: field/f31.py, field/f64.py) -----------
 
 GOLDILOCKS = register(make_field_spec(
     "goldilocks", 0xFFFFFFFF00000001, limb_bits=32, generator=7, n_limbs=2,

@@ -18,12 +18,14 @@ import torch
 
 from gnark_crypto_tpu_torch.curve.g2 import g2_curve
 from gnark_crypto_tpu_torch.curve.jacobian import Affine, Jac, curve_ops
-from gnark_crypto_tpu_torch.field import exp, kernels, point_add
+from gnark_crypto_tpu_torch.field import api, exp, kernels, point_add
 from gnark_crypto_tpu_torch.field import mont, vm
 from gnark_crypto_tpu_torch.io import gt_bytes
 from gnark_crypto_tpu_torch.pairing import api as pairing_api
 from gnark_crypto_tpu_torch.msm import pippenger
-from gnark_crypto_tpu_torch.ntt import fft, four_step, radix2
+from gnark_crypto_tpu_torch.hashes.sis import RSis
+from gnark_crypto_tpu_torch.ntt import fft, four_step, radix2, radix2_f31
+from gnark_crypto_tpu_torch.ntt import radix2_f64
 from gnark_crypto_tpu_torch.ntt.domain import Domain
 from gnark_crypto_tpu_torch.specs import curve as cs
 from gnark_crypto_tpu_torch.specs import field as fs
@@ -500,3 +502,118 @@ def test_commit_open_verify_on_card(cuda):
     bad = kzg.OpeningProof(proof.h, g1.fr.from_int(
         [(p_a + 1) % r], mont=False, device=cuda))
     assert not bool(kzg.verify("bn254", C, bad, point, srs.vk))
+
+
+# -- the small fields: koalabear/babybear and goldilocks NTT kernels ---------
+
+def small_elems(spec, n, seed, device):
+    """n random canonical Montgomery elements of a small field."""
+    eng = api.for_spec(spec)
+    rng = np.random.default_rng(seed)
+    if eng.elem_dims == 0:
+        v = rng.integers(0, spec.modulus, size=n, dtype=np.int64)
+        return torch.from_numpy(v.astype(np.int32)).to(device)
+    v = rng.integers(0, spec.modulus, size=n, dtype=np.uint64)
+    return torch.from_numpy(v.view(np.int32).reshape(n, 2).copy()).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["koalabear", "babybear"])
+def test_f31_kernels_match_plain(cuda, name):
+    spec = fs.get_field(name)
+    k = 20
+    dom = Domain(spec, 1 << k, device=cuda)
+    a = small_elems(spec, 1 << k, 5, cuda)
+    tw0 = dom.twiddles0
+    before = [w.launches for w in (radix2_f31.stage, radix2_f31.stage_r4,
+                                   radix2_f31.block)]
+    for dit in (False, True):
+        for s in (0, 3, 6):
+            assert torch.equal(radix2_f31.stage(spec, a, tw0, k, s, dit),
+                               radix2_f31.stage_plain(spec, a, tw0, k, s, dit))
+            assert torch.equal(
+                radix2_f31.stage_r4(spec, a, tw0, k, s, dit),
+                radix2_f31.stage_r4_plain(spec, a, tw0, k, s, dit))
+        assert torch.equal(radix2_f31.block(spec, a, tw0, 7, 13, dit),
+                           radix2_f31.block_plain(spec, a, tw0, 7, 13, dit))
+    for rows, log_n in ((4096, 9), (32768, 4)):  # the SIS shapes
+        small = Domain(spec, 1 << log_n, with_coset=False, device=cuda)
+        b = small_elems(spec, rows << log_n, log_n, cuda)
+        for dit in (False, True):
+            got = radix2_f31.block(spec, b, small.twiddles0, 0, log_n, dit)
+            assert torch.equal(got, radix2_f31.block_plain(
+                spec, b, small.twiddles0, 0, log_n, dit))
+    assert [w.launches - n for w, n in zip(
+        (radix2_f31.stage, radix2_f31.stage_r4, radix2_f31.block),
+        before)] == [6, 6, 6]
+    for dec, inverse in PAIRS:
+        assert torch.equal(fft._run(dom, a, dec, inverse)[0],
+                           radix2_f31.run_plain(dom, a, dec, inverse))
+
+
+@pytest.mark.cuda
+def test_f64_kernels_match_plain(cuda):
+    spec = fs.GOLDILOCKS
+    k = 20
+    dom = Domain(spec, 1 << k, device=cuda)
+    a = small_elems(spec, 1 << k, 6, cuda)
+    tw0 = dom.twiddles0
+    for dit in (False, True):
+        for s in (0, 7):
+            assert torch.equal(radix2_f64.stage(spec, a, tw0, k, s, dit),
+                               radix2_f64.stage_plain(spec, a, tw0, k, s, dit))
+        assert torch.equal(radix2_f64.block(spec, a, tw0, 8, 12, dit),
+                           radix2_f64.block_plain(spec, a, tw0, 8, 12, dit))
+    small = Domain(spec, 512, with_coset=False, device=cuda)
+    b = small_elems(spec, 2048 * 512, 9, cuda)  # the 2^18-element SIS rows
+    for dit in (False, True):
+        assert torch.equal(
+            radix2_f64.block(spec, b, small.twiddles0, 0, 9, dit),
+            radix2_f64.block_plain(spec, b, small.twiddles0, 0, 9, dit))
+    for dec, inverse in PAIRS:
+        assert torch.equal(fft._run(dom, a, dec, inverse)[0],
+                           radix2_f64.run_plain(dom, a, dec, inverse))
+
+
+@pytest.mark.cuda
+def test_small_field_kernels_reject(cuda):
+    kb, gl = fs.KOALABEAR, fs.GOLDILOCKS
+    a = small_elems(kb, 1 << 10, 1, cuda)
+    g = small_elems(gl, 1 << 10, 2, cuda)
+    tw, twg = (Domain(s, 1 << 10, with_coset=False, device=cuda).twiddles0
+               for s in (kb, gl))
+    with pytest.raises(ValueError):
+        radix2_f31.stage(kb, a[::2], tw, 9, 0, False)
+    with pytest.raises(ValueError):
+        radix2_f31.stage_r4(kb, a, tw, 10, 9, False)   # stage 10 is past k
+    with pytest.raises(ValueError):
+        radix2_f31.block(kb, a[:1000], tw, 0, 10, False)
+    with pytest.raises(NotImplementedError):
+        radix2_f31.block(gl, g, twg, 0, 10, False)
+    with pytest.raises(ValueError):
+        radix2_f64.stage(gl, g.to(torch.int64), twg, 10, 0, False)
+    with pytest.raises(ValueError):
+        radix2_f64.block(gl, g, twg, 0, 13, False)      # beyond the tile
+    with pytest.raises(NotImplementedError):
+        radix2_f64.stage(kb, a, tw, 10, 0, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["koalabear", "goldilocks"])
+def test_sis_on_card_equals_cpu(cuda, name):
+    """Ring-SIS hash and hash_many on the card (block-kernel passes) equal
+    the CPU's plain pipeline."""
+    spec = fs.get_field(name)
+    eng = api.for_spec(spec)
+    on_card = RSis(spec, 42, 9, 16, 1 << 12, device=cuda)
+    on_cpu = RSis(spec, 42, 9, 16, 1 << 12, device="cpu")
+    v = eng.from_mont(small_elems(spec, 1 << 12, 3, "cpu"))
+    before = (radix2_f31.block if eng.elem_dims == 0
+              else radix2_f64.block).launches
+    got = on_card.hash(v.to(cuda))
+    assert (radix2_f31.block if eng.elem_dims == 0
+            else radix2_f64.block).launches == before + 2
+    assert torch.equal(got.cpu(), on_cpu.hash(v))
+    vs = torch.stack([v[:1000], v[1000:2000], v[2000:3000]])
+    assert torch.equal(on_card.hash_many(vs.to(cuda)).cpu(),
+                       on_cpu.hash_many(vs))

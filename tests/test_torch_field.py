@@ -16,7 +16,7 @@ import torch
 from gnark_crypto_tpu.field import mont as jmont
 from gnark_crypto_tpu.specs import field as jfs
 from gnark_crypto_tpu_torch import convert
-from gnark_crypto_tpu_torch.field import api, kernels
+from gnark_crypto_tpu_torch.field import api, f31, f64, kernels
 from gnark_crypto_tpu_torch.field import mont as tmont
 from gnark_crypto_tpu_torch.specs import field as tfs
 
@@ -245,9 +245,16 @@ def test_field_engine_facade():
                                          pow(q - 1, (q - 1) // 2, q) == 1]
     assert eng.sgn0(x).tolist() == [0, 1, (q - 1) & 1]
     assert eng.to_int(eng.tile_lead(x[:1], 2)) == [4, 4]
-    for name in ("koalabear", "babybear", "goldilocks"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.for_field(name)
+    # the small fields have engines of their own: f31 (no word axis) for
+    # koalabear and babybear, f64 (two words) for goldilocks
+    for name, impl, dims in (("koalabear", f31, 0), ("babybear", f31, 0),
+                             ("goldilocks", f64, 1)):
+        small = api.for_field(name)
+        assert small is api.for_spec(tfs.get_field(name))
+        assert (small.impl, small.elem_dims) == (impl, dims)
+        v = small.from_int([2, 3], device=CPU)
+        assert small.eshape(v) == (2,)
+        assert small.to_int(small.mul(v, v)) == [4, 9]
 
 
 def test_cpu_tensors_never_launch():
