@@ -4,10 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``gnark_crypto_tpu_torch/csrc`` (nvcc, sm_90a),
-then drives the port's six ported paths through their public entry
-points and holds every result and every kernel against the plain PyTorch
-versions on the same card, bit for bit (the field is exact: the tolerance
-is 0):
+then drives the port's ported paths through their public entry points and
+holds every result and every kernel against the plain PyTorch versions on
+the same card, bit for bit (the field is exact: the tolerance is 0):
 
 * the bn254 Fr NTT (``Domain``, ``fft``, ``fft_inverse``, ``mont.mul``) at
   2^20 and 2^24 elements;
@@ -41,7 +40,15 @@ is 0):
   Ring-SIS hash ``rsis(f, 42, 9, 16, n)`` of 2^20 koalabear elements and
   2^18 goldilocks elements below 2^63 (``bench.py:381-398``); and
   ``RSis(koalabear, 42, 4, 8, 64).hash_many`` over 2048 columns of 64
-  elements (Vortex's column hash, ``protocols/vortex.py:54-58``).
+  elements (Vortex's column hash, ``protocols/vortex.py:54-58``);
+* bls12-381 and bls12-377 (12-word Fp, the 12-word instantiations of the
+  field, exponent, G1 point and VM kernels): the G1 MSM as for bn254 at
+  2^12 (an EIP-4844 blob), 2^16 and 2^20 with ``batch_scalar_mul`` at
+  2^16, and the pairing as for bn254 at 2048 pairs, tampered, at batch 2
+  and against the golden bytes, with the Q_i from a pool of 16 points
+  [b_j]G2 made by an affine Fp2 ladder in Python integers (the G2 group law
+  has no 12-word kernel yet: a bls12 G2 ``scalar_mul`` on the card must
+  raise ``NotImplementedError``).
 
 Phases:
 
@@ -56,8 +63,10 @@ Phases:
    oracle, and ``batch_scalar_mul`` lanes against Python integers; each
    pairing against the golden bytes or its expected check; the VM kernel
    on the 2048-pair chain's ``product`` launch and on a random program of
-   all six ops; the five Fp2 kernels on the inputs they received in a
-   second 2^16 G2 MSM (the fold on its first 4 windows); the KZG results
+   all six ops (for bls12 at 12 words, with ``mont_mul`` on the widest
+   12-word product of the MSM path); the five Fp2 kernels on the inputs
+   they received in a second 2^16 G2 MSM (the fold on its first 4
+   windows); the KZG results
    against alpha-oracle points and their expected verdicts; the four
    small-field kernels (both forms of ``ntt_f31_stage``) on every distinct
    call of the small-field path, each small-field transform against its
@@ -73,7 +82,10 @@ Phases:
    elems/s, SIS elems/s and ``hash_many`` columns/s.
 
 Prints the card's name and power limit, the build time, a ``timings`` JSON
-line, a ``kernels`` JSON line and, last, the device line. Exits non-zero,
+line, a ``kernels`` JSON line (a kernel built at 8 and 12 words has a row
+per width, the 12-word one named with ``_w12``; its numbers from the
+bls12-381 paths, bls12-377's in the timings line) and, last, the device
+line. Exits non-zero,
 with no result, without a CUDA card or without the package beside it.
 """
 
@@ -94,6 +106,18 @@ INT32_MAD_PER_S = 132 * 64 * 1.98e9
 MADS_PER_MONT_MUL = 136  # 8x8 for a*b, 8x8 for m*q, 8 for m (8-word CIOS)
 ELEM_BYTES = 32
 SEED = 20261016
+# the kernels built at 8 and 12 words; their 12-word instantiations are
+# rows of their own, named with W12
+W12_KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double",
+               "affine_prep", "affine_finish", "jac_fold_windows",
+               "vm_execute")
+W12 = "_w12"
+
+
+def mads_per_product(words: int) -> int:
+    """32-bit multiply-adds of one W-word CIOS product: W^2 for a*b, W^2
+    for m*q, W for m (136 at 8 words, 300 at 12)."""
+    return 2 * words * words + words
 
 FAILURES: list[str] = []
 
@@ -169,16 +193,20 @@ def width(args) -> int:
 class Recorder:
     """Stands in for a kernel wrapper in its module: calls it and, while
     ``on``, keeps the arguments of the widest call (first dimension of the
-    first tensor argument), or of every call with ``keep_all``."""
+    first tensor argument), or of every call with ``keep_all``; with
+    ``words``, only of calls on a field of that many words (the wrapper's
+    first argument, a field spec)."""
 
-    def __init__(self, module, name: str, keep_all: bool = False):
+    def __init__(self, module, name: str, keep_all: bool = False,
+                 words: int | None = None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
-        self.keep_all, self.on = keep_all, False
+        self.keep_all, self.on, self.words = keep_all, False, words
         self.args, self.calls = None, []
 
     def __call__(self, *args):
-        if self.on:
+        if self.on and (self.words is None
+                        or args[0].n_words == self.words):
             if self.keep_all:
                 self.calls.append(args)
             else:
@@ -198,6 +226,10 @@ class Recorder:
     def launches(self, value: int) -> None:
         self.fn.launches = value
 
+    @property
+    def launches_by_width(self) -> dict:
+        return self.fn.launches_by_width
+
     def install(self):
         setattr(self.module, self.name, self)
 
@@ -206,41 +238,62 @@ class Recorder:
 
 
 class MsmSlice:
-    """The bn254 G1 MSM path: inputs, main path, checks and timings."""
+    """A G1 MSM path: inputs, main path, checks and timings. bn254 (8
+    words) with a stark_g1 MSM beside it (a != 0), or a bls12 curve (12-word
+    Fp), whose kernel rows are the 12-word instantiations (``W12``) and
+    which also records and checks ``mont_mul``."""
 
     KERNELS = ("exp_const", "jac_add", "jac_double", "affine_prep",
                "affine_finish", "jac_fold_windows")
 
     def __init__(self, dev, nprng, base_log: int = 16,
-                 sizes=(16, 20, 24), stark_log: int = 12):
+                 sizes=(16, 20, 24), stark_log: int | None = 12,
+                 name: str = "bn254_g1"):
         import torch
 
         from gnark_crypto_tpu_torch.curve.jacobian import curve_ops
         from gnark_crypto_tpu_torch.field import exp as field_exp
-        from gnark_crypto_tpu_torch.field import point_add
+        from gnark_crypto_tpu_torch.field import kernels, mont, point_add
         from gnark_crypto_tpu_torch.msm import pippenger
         from gnark_crypto_tpu_torch.specs import curve as cs
 
         self.torch, self.dev, self.nprng = torch, dev, nprng
         self.pp, self.point_add, self.field_exp = pippenger, point_add, \
             field_exp
-        self.spec = cs.get_curve("bn254_g1")
-        self.stark = cs.get_curve("stark_g1")
+        self.spec = cs.get_curve(name)
         self.curve = curve_ops(self.spec)
+        self.W = self.spec.fp.n_words
+        self.suffix = "" if self.W == 8 else W12
+        self.tag = "" if self.W == 8 else f"{self.spec.name} "
+        self.stark = cs.get_curve("stark_g1") if stark_log else None
+        kernel_names = self.KERNELS + (("mont_mul",) if self.W != 8 else ())
+        self.kernels = tuple(self.kname(k) for k in kernel_names)
         self.wrappers = {"exp_const": field_exp.exp_const,
                          **{k: getattr(point_add, k) for k in self.KERNELS
                             if k != "exp_const"}}
-        self.recorders = [Recorder(field_exp, "exp_const"),
+        self.recorders = [Recorder(field_exp, "exp_const", words=self.W),
                           Recorder(point_add, "jac_fold_windows",
                                    keep_all=True)]
-        self.recorders += [Recorder(point_add, k) for k in
+        self.recorders += [Recorder(point_add, k, words=self.W) for k in
                            ("jac_add", "affine_prep", "affine_finish")]
+        self.plain = {"exp_const": field_exp.exp_const_plain,
+                      **{k: getattr(point_add, f"{k}_plain")
+                         for k in self.KERNELS if k != "exp_const"}}
+        if self.W != 8:
+            # mont.mul reaches the kernel through its own module's name
+            self.wrappers["mont_mul"] = kernels.mont_mul
+            self.plain["mont_mul"] = kernels.mont_mul_plain
+            self.recorders.append(Recorder(mont, "mont_mul", words=self.W))
         self.rec = {r.name: r for r in self.recorders}
         self.results, self.wall, self.peak = {}, {}, {}
         # points [i+1]G, i < 2^base_log, tiled to 2^k for k in sizes; the
         # kernels are checked and timed on a second MSM at sizes[1]
         self.base_log, self.sizes, self.stark_log = base_log, sizes, \
             stark_log
+
+    def kname(self, name: str) -> str:
+        """The kernel row of ``name`` at this path's width."""
+        return name + self.suffix
 
     # -- inputs --------------------------------------------------------------
     def multiples(self, spec, n: int):
@@ -264,6 +317,8 @@ class MsmSlice:
         for r in self.recorders:
             r.install()
         self.rec["jac_fold_windows"].on = True
+        if "mont_mul" in self.rec:
+            self.rec["mont_mul"].on = True
         t0 = time.perf_counter()
         p16 = self.multiples(self.spec, 1 << self.base_log)
         self.p16 = p16
@@ -282,13 +337,19 @@ class MsmSlice:
         self.bsm = pp.batch_scalar_mul(
             self.spec, Affine(p16.x[0], p16.y[0]),
             self.s24[:1 << self.base_log])
-        self.stark_pts = self.multiples(self.stark, 1 << self.stark_log)
-        self.stark_s = random_scalars(self.nprng, self.stark,
-                                      1 << self.stark_log, self.dev)
-        self.results["stark"] = pp.msm(self.stark, self.stark_pts,
-                                       self.stark_s)
+        if self.stark is not None:
+            self.stark_pts = self.multiples(self.stark, 1 << self.stark_log)
+            self.stark_s = random_scalars(self.nprng, self.stark,
+                                          1 << self.stark_log, self.dev)
+            self.results["stark"] = pp.msm(self.stark, self.stark_pts,
+                                           self.stark_s)
         torch.cuda.synchronize()
         self.rec["jac_fold_windows"].on = False
+        if "mont_mul" in self.rec:
+            self.rec["mont_mul"].on = False
+        # out of the way of the other paths; checks() installs them again
+        for r in self.recorders:
+            r.remove()
         return time.perf_counter() - t0
 
     # -- phase 2 -------------------------------------------------------------
@@ -312,8 +373,8 @@ class MsmSlice:
         for spec, key, scal, base_n in (
                 [(self.spec, k, self.s24[:1 << k], 1 << self.base_log)
                  for k in self.sizes]
-                + [(self.stark, "stark", self.stark_s,
-                    1 << self.stark_log)]):
+                + ([(self.stark, "stark", self.stark_s,
+                     1 << self.stark_log)] if self.stark else [])):
             p, a = spec.fp.modulus, spec.a % spec.fp.modulus
             total = weighted_total(scal, base_n, spec.fr.modulus)
             want = oracle_mul((spec.gx % p, spec.gy % p), total, p, a)
@@ -321,6 +382,7 @@ class MsmSlice:
             tag = (f"{spec.name} 2^{key}" if key != "stark"
                    else f"{spec.name} 2^{self.stark_log}")
             check(got == [want], f"msm {tag} == [sum s_i k_i]G (identity)")
+        name = self.spec.name
 
         # 2^8 random points against the Python-int oracle
         rng = random.Random(SEED + 8)
@@ -338,7 +400,7 @@ class MsmSlice:
         got = pp.msm(self.spec, P, self.curve.fr.from_int(
             ks, mont=False, device=self.dev))
         check(self.affine_ints(self.curve, got) == [want],
-              "msm 2^8 random points == Python-int oracle")
+              f"msm {name} 2^8 random points == Python-int oracle")
 
         # batch_scalar_mul at sampled lanes
         nb = 1 << self.base_log
@@ -347,13 +409,14 @@ class MsmSlice:
         got = self.affine_ints(self.curve, type(self.bsm)(
             *(c[lanes] for c in self.bsm)))
         check(got == [oracle_mul(g, k, p, 0) for k in kk],
-              f"batch_scalar_mul 2^{self.base_log}: 8 sampled lanes == "
-              "Python ints")
+              f"batch_scalar_mul {name} 2^{self.base_log}: 8 sampled lanes"
+              " == Python ints")
 
         # the kernels on the inputs of a second 2^20 MSM
-        for name in ("exp_const", "jac_add", "affine_prep",
-                     "affine_finish"):
-            self.rec[name].on = True
+        for r_ in self.recorders:
+            r_.install()
+        for k in ("exp_const", "jac_add", "affine_prep", "affine_finish"):
+            self.rec[k].on = True
         k20 = self.sizes[1]
         again = pp.msm(self.spec, self.tiled(k20), self.s24[:1 << k20])
         for r_ in self.recorders:
@@ -361,38 +424,46 @@ class MsmSlice:
             r_.remove()
         check(all(torch.equal(u, v)
                   for u, v in zip(again, self.results[k20])),
-              f"msm 2^{k20} run twice: the same Jacobian coordinates")
-        self.kargs = {name: self.rec[name].args for name in
-                      ("exp_const", "jac_add", "affine_prep",
-                       "affine_finish")}
+              f"msm {name} 2^{k20} run twice: the same Jacobian coordinates")
+        recorded = ("exp_const", "jac_add", "affine_prep", "affine_finish")
+        if "mont_mul" in self.rec:
+            recorded += ("mont_mul",)
+        self.kargs = {k: self.rec[k].args for k in recorded}
         self.kargs["jac_double"] = (self.spec.fp, self.spec.a,
                                     *self.curve.from_affine(self.p16))
         folds = self.rec["jac_fold_windows"].calls
         # one fold per MSM chunk: 2^16, 2^20, four chunks of 2^24, stark
+        # (bn254); 2^12, 2^16, 2^20 (bls12, whose other folds are not held
+        # against the plain fold: 12-word plain products cost ~10 s a fold)
         self.fold_args = {f"2^{k}": folds[i]
                           for i, k in enumerate(self.sizes)}
-        self.fold_args[f"stark 2^{self.stark_log}"] = folds[-1]
+        if self.stark is not None:
+            self.fold_args[f"stark 2^{self.stark_log}"] = folds[-1]
+        else:
+            self.fold_args = {f"2^{k20}": folds[1]}
         self.kargs["jac_fold_windows"] = folds[1]
-        plain = {"exp_const": self.field_exp.exp_const_plain,
-                 "jac_add": pa.jac_add_plain,
-                 "jac_double": pa.jac_double_plain,
-                 "affine_prep": pa.affine_prep_plain,
-                 "affine_finish": pa.affine_finish_plain,
-                 "jac_fold_windows": pa.jac_fold_windows_plain}
-        self.plain = plain
-        for name, args in self.kargs.items():
-            outs = self.wrappers[name](*args)
-            wants = plain[name](*args)
-            if name == "exp_const":
+        plain = self.plain
+        self.plain_ms = {}
+        for k, args in self.kargs.items():
+            outs = self.wrappers[k](*args)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wants = plain[k](*args)
+            self.torch.cuda.synchronize()
+            self.plain_ms[k] = (time.perf_counter() - t0) * 1e3
+            if k in ("exp_const", "mont_mul"):
                 outs, wants = (outs,), (wants,)
             for i, (o, w) in enumerate(zip(outs, wants)):
-                compare(name, o, w, f"{width(args)} lanes, output {i}")
+                compare(self.kname(k), o, w,
+                        f"{self.tag}{width(args)} lanes, output {i}")
         for tag, args in self.fold_args.items():
             if args is not folds[1]:
                 for i, (o, w) in enumerate(zip(
                         pa.jac_fold_windows(*args),
                         pa.jac_fold_windows_plain(*args))):
                     compare("jac_fold_windows", o, w, f"{tag}, output {i}")
+        if self.stark is None:
+            return
         stark_dbl = (self.stark.fp, self.stark.a,
                      *curve_ops(self.stark).from_affine(self.stark_pts))
         for i, (o, w) in enumerate(zip(pa.jac_double(*stark_dbl),
@@ -405,8 +476,12 @@ class MsmSlice:
         """(bytes, multiply-adds) each kernel's recorded call must move and
         do on its data: mask bits tell which lanes do which products."""
         torch, pa = self.torch, self.point_add
-        mm = MADS_PER_MONT_MUL
+        mm = mads_per_product(self.W)
+        ELEM_BYTES = 4 * self.W
         out = {}
+        if "mont_mul" in self.kargs:
+            _, x, _ = self.kargs["mont_mul"]
+            out["mont_mul"] = (3 * ELEM_BYTES * x.shape[0], mm * x.shape[0])
         spec, a, *pts = self.kargs["affine_prep"]
         n = pts[0].shape[0]
         _, _, bits = pa.affine_prep(spec, a, *pts)
@@ -453,21 +528,26 @@ class MsmSlice:
                     if kname == "jac_fold_windows" else self.kargs[kname])
             fn, pfn = self.wrappers[kname], self.plain[kname]
             b_ms, b_by = bound(nbytes, mads)
+            # the plain version's time from its run in checks() where it
+            # ran on these inputs (host clock, synchronised)
+            plain_ms = (self.plain_ms[kname]
+                        if args is self.kargs[kname]
+                        else cuda_ms(lambda: pfn(*args), reps=1, rounds=1))
             row = {"ms": cuda_ms(lambda: fn(*args), reps=5),
-                   "plain_ms": cuda_ms(lambda: pfn(*args), reps=1,
-                                       rounds=1),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "lanes": width(args)}
+                   "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "lanes": width(args)}
             if kname == "exp_const":
                 row["serial_products"] = self.exp_serial
             if serial:
                 row["serial_products"] = serial[0]
-            label = name if kname == "jac_fold_windows" else (
-                f"{name} {width(args)} lanes")
+            label = self.tag + (name if kname == "jac_fold_windows" else (
+                f"{name} {width(args)} lanes"))
             timings[label] = row
-            if (kname not in kernel_rows
+            row_name = self.kname(kname)
+            if (row_name not in kernel_rows
                     or name.endswith(f"2^{self.sizes[1]}")):
-                kernel_rows[kname] = row
+                kernel_rows[row_name] = row
+        curve = self.spec.name.removesuffix("_g1")
         for k in self.sizes:
             # the main path's run was the first at its size; time it again
             pts = self.tiled(k)
@@ -476,18 +556,20 @@ class MsmSlice:
             pp.msm(self.spec, pts, self.s24[:1 << k])
             torch.cuda.synchronize()
             warm = time.perf_counter() - t0
-            timings[f"msm bn254 2^{k}"] = {
+            timings[f"msm {curve} 2^{k}"] = {
                 "s": warm, "points_per_s": (1 << k) / warm,
                 "s_main_path": self.wall[k], "peak_bytes": self.peak[k]}
             del pts
         k20 = self.sizes[1]
-        timings[f"msm 2^{k20} steps"] = msm_steps(
+        timings[f"{self.tag}msm 2^{k20} steps"] = msm_steps(
             pp, lambda: pp.msm(self.spec, self.tiled(k20),
                                self.s24[:1 << k20]))
 
     def tiled(self, k: int):
         from gnark_crypto_tpu_torch.curve.jacobian import Affine
 
+        if k <= self.base_log:
+            return Affine(self.p16.x[:1 << k], self.p16.y[:1 << k])
         reps = 1 << (k - self.base_log)
         return Affine(self.p16.x.repeat(reps, 1), self.p16.y.repeat(reps, 1))
 
@@ -538,6 +620,7 @@ class PairingSlice:
     KERNELS = ("vm_execute", "mont_mul", "exp_const", "jac_add",
                "jac_double")
     NAME = "bn254"
+    SUFFIX = ""    # kernel rows of the 8-word instantiations
     # gnark GT bytes of e(G1, G2) and e([5]G1, [7]G2), from the independent
     # oracle tests/gt_oracle.py
     GOLDEN = Path(__file__).resolve().parent / "tests/fixtures/gt_golden.json"
@@ -560,6 +643,14 @@ class PairingSlice:
         self.rec = Recorder(vm, "vm_execute", keep_all=True)
         with open(self.GOLDEN) as f:
             self.golden = json.load(f)[self.NAME]
+        self.kernels = tuple(k + self.SUFFIX for k in self.KERNELS)
+        self.tag = f"{self.NAME} " if self.SUFFIX else ""
+
+    def g2_scalars(self, rng, n: int) -> list[int]:
+        """The G2 scalars b_i of n pairs."""
+        return [rng.randrange(1, self.r) for _ in range(n)]
+
+    G2_BY = "scalar_mul"
 
     # -- inputs --------------------------------------------------------------
     def g1_mul(self, ks):
@@ -600,7 +691,7 @@ class PairingSlice:
         n = self.n
         # lane 0: infinite P; the last lane cancels the rest
         a = [0] + [rng.randrange(1, self.r) for _ in range(n - 2)]
-        b = [rng.randrange(1, self.r) for _ in range(n - 1)]
+        b = self.g2_scalars(rng, n - 1)
         a.append(-sum(x * y for x, y in zip(a, b)) % self.r)
         b.append(1)
         # then the batch-2 KZG-verify shape and the golden pairs: one ladder
@@ -637,34 +728,36 @@ class PairingSlice:
         import numpy as np
 
         vm, vp = self.vm, self.vp
+        name, vm_row = self.NAME, "vm_execute" + self.SUFFIX
         for key, z in self.gt.items():
             check(self.gt_hex(z) == self.golden[key],
-                  f"pair {key} on the card == golden gnark GT bytes")
-        check(bool(self.check_big), f"pairing_check over {self.n} pairs "
-              "(lane 0 infinite, last lane -sum a_i b_i G1) is True")
+                  f"pair {name} {key} on the card == golden gnark GT bytes")
+        check(bool(self.check_big), f"pairing_check {name} over {self.n} "
+              "pairs (lane 0 infinite, last lane -sum a_i b_i G1) is True")
         check(not bool(self.check_tampered),
-              f"pairing_check over {self.n} pairs, one scalar changed, "
-              "is False")
-        check(bool(self.check_kzg), "pairing_check at batch 2 "
+              f"pairing_check {name} over {self.n} pairs, one scalar "
+              "changed, is False")
+        check(bool(self.check_kzg), f"pairing_check {name} at batch 2 "
               "(aG1, bG2), (-abG1, G2) is True")
         progs = [prog.n_instrs for prog, _ in self.calls]
         want = [vp.build_program(self.NAME, v).n_instrs for v in
                 ("full", "full", "miller", "product", "reduce", "miller",
                  "product", "reduce", "full")]
-        check(progs == want, f"vm_execute programs on the path: {progs}")
+        check(progs == want,
+              f"vm_execute {name} programs on the path: {progs}")
         # the kernel against its plain version: the product fold of the
         # 2048-pair chain, and a random program of all six ops
         prod = next(c for c in self.calls
                     if c[0] is vp.build_program(self.NAME, "product"))
-        compare("vm_execute", vm.vm_execute(*prod),
-                vm.vm_execute_plain(*prod),
-                f"product program, {prod[1].shape[1]} lanes")
+        compare(vm_row, vm.vm_execute(*prod), vm.vm_execute_plain(*prod),
+                f"{self.tag}product program, {prod[1].shape[1]} lanes")
         rand = vm.random_program(self.spec.fp, 2900, seed=SEED)
         n_pad = 4 * rand.tile
         state = vm._entry_consts(rand, str(self.dev))[:, None, :].repeat(
             1, n_pad, 1)
         vals = self.nprng.integers(0, 1 << 32, size=(len(
-            rand.entry_inputs), n_pad, 8), dtype=np.uint32)
+            rand.entry_inputs), n_pad, self.spec.fp.n_words),
+            dtype=np.uint32)
         vals[..., -1] %= self.spec.fp.q_words[-1]
         edges = self.g1.fp.from_int([0, 1, self.spec.fp.modulus - 1],
                                     device=self.dev)
@@ -672,9 +765,9 @@ class PairingSlice:
             state[reg] = self.torch.from_numpy(vals[i].view(np.int32)).to(
                 self.dev)
             state[reg, :3] = edges
-        compare("vm_execute", vm.vm_execute(rand, state),
+        compare(vm_row, vm.vm_execute(rand, state),
                 vm.vm_execute_plain(rand, state),
-                f"random program of {rand.n_instrs} rows "
+                f"{self.tag}random program of {rand.n_instrs} rows "
                 f"{rand.op_counts()}, {n_pad} lanes")
 
     # -- phase 3 -------------------------------------------------------------
@@ -683,7 +776,8 @@ class PairingSlice:
 
         torch, api, vm, vp = self.torch, self.api, self.vm, self.vp
         name = self.NAME
-        mm = MADS_PER_MONT_MUL
+        W = self.spec.fp.n_words
+        mm = mads_per_product(W)
         labels = {vp.build_program(name, v): v for v in
                   ("full", "miller", "product", "reduce")}
         seen = set()
@@ -695,7 +789,7 @@ class PairingSlice:
             seen.add((variant, lanes))
             n_mul = prog.op_counts()["MUL"]
             nbytes = (state.numel() * 4 + prog.n_instrs * 16
-                      + len(prog.out_regs) * (4 + lanes * ELEM_BYTES))
+                      + len(prog.out_regs) * (4 + lanes * 4 * W))
             b_ms, b_by = bound(nbytes, mm * n_mul * lanes)
             row = {"ms": cuda_ms(lambda: vm.vm_execute(prog, state),
                                  reps=2, rounds=3),
@@ -707,8 +801,8 @@ class PairingSlice:
                 row["plain_ms"] = cuda_ms(
                     lambda: vm.vm_execute_plain(prog, state), reps=1,
                     rounds=1)
-                kernel_rows["vm_execute"] = row
-            timings[f"vm_execute {variant} {lanes} lanes"] = row
+                kernel_rows["vm_execute" + self.SUFFIX] = row
+            timings[f"{self.tag}vm_execute {variant} {lanes} lanes"] = row
 
         def host_s(fn, rounds=3):
             fn()
@@ -725,14 +819,107 @@ class PairingSlice:
         api.pair(name, self.P, *self.Q)
         launches = vm.vm_execute.launches - before
         s = host_s(lambda: api.pair(name, self.P, *self.Q))
-        timings[f"pair bn254 {self.n}"] = {
+        timings[f"pair {name} {self.n}"] = {
             "s": s, "pairs_per_s": self.n / s,
             "vm_launches_per_pair": launches}
         s2 = host_s(lambda: bool(api.pairing_check(name, self.P2, *self.Q2)),
                     rounds=5)
-        timings["pairing_check bn254 batch 2"] = {"s": s2}
-        timings["pairing inputs (G1 batch_scalar_mul, G2 scalar_mul, "
-                f"{self.n} lanes)"] = {"s": self.inputs_s}
+        timings[f"pairing_check {name} batch 2"] = {"s": s2}
+        timings[f"{self.tag}pairing inputs (G1 batch_scalar_mul, G2 "
+                f"{self.G2_BY}, {self.n} lanes)"] = {"s": self.inputs_s}
+
+
+def fp2_oracle_add(P, Q, p: int, nr: int):
+    """Affine addition on a G2 twist (a = 0) over Fp2 = Fp[u]/(u^2 - nr),
+    with Python ints; an element is (re, im), None is infinity."""
+    def mul(x, y):
+        return ((x[0] * y[0] + nr * x[1] * y[1]) % p,
+                (x[0] * y[1] + x[1] * y[0]) % p)
+
+    def sub(x, y):
+        return ((x[0] - y[0]) % p, (x[1] - y[1]) % p)
+
+    def inv(x):
+        d = pow((x[0] * x[0] - nr * x[1] * x[1]) % p, -1, p)
+        return (x[0] * d % p, -x[1] * d % p)
+
+    if P is None:
+        return Q
+    if Q is None:
+        return P
+    (x1, y1), (x2, y2) = P, Q
+    if x1 == x2 and (y1[0] + y2[0]) % p == 0 and (y1[1] + y2[1]) % p == 0:
+        return None
+    if P == Q:
+        x1s = mul(x1, x1)
+        lam = mul(((3 * x1s[0]) % p, (3 * x1s[1]) % p),
+                  inv(((2 * y1[0]) % p, (2 * y1[1]) % p)))
+    else:
+        lam = mul(sub(y2, y1), inv(sub(x2, x1)))
+    x3 = sub(sub(mul(lam, lam), x1), x2)
+    return x3, sub(mul(lam, sub(x1, x3)), y1)
+
+
+def fp2_oracle_mul(P, k: int, p: int, nr: int):
+    acc = None
+    while k:
+        if k & 1:
+            acc = fp2_oracle_add(acc, P, p, nr)
+        P = fp2_oracle_add(P, P, p, nr)
+        k >>= 1
+    return acc
+
+
+class Bls12PairingSlice(PairingSlice):
+    """A bls12 pairing path (12-word Fp, the 12-word VM kernel): 2048 pairs
+    P_i = [a_i]G1 by batch_scalar_mul on the 12-word point kernels, Q_i
+    from a pool of 16 points [b_j]G2. The G2 group law has no 12-word
+    kernel yet, so the G2 inputs come from an affine ladder over Fp2 in
+    Python integers: inputs, not the path under test."""
+
+    SUFFIX = W12
+    POOL = 16
+    G2_BY = "Python-int ladder"
+
+    def __init__(self, dev, nprng, name: str, n: int = 2048):
+        self.NAME = name
+        super().__init__(dev, nprng, n)
+        self.nr = self.g2.fp.nr
+        self.g2_cache = {}
+
+    def g2_scalars(self, rng, n: int) -> list[int]:
+        pool = [rng.randrange(1, self.r) for _ in range(self.POOL)]
+        return [pool[i % self.POOL] for i in range(n)]
+
+    def g2_mul(self, ks):
+        """[k]G2 by the Python-int Fp2 ladder (one per distinct k)."""
+        from gnark_crypto_tpu_torch.curve.jacobian import Affine
+
+        spec = self.g2.spec
+        p = spec.fp.modulus
+        g = (tuple(spec.gx), tuple(spec.gy))
+        for k in set(ks):
+            if k % self.r not in self.g2_cache:
+                self.g2_cache[k % self.r] = fp2_oracle_mul(
+                    g, k % self.r, p, self.nr)
+        pts = [self.g2_cache[k % self.r] for k in ks]
+        f = self.g2.fp
+        return Affine(f.from_int([q[0] for q in pts], device=self.dev),
+                      f.from_int([q[1] for q in pts], device=self.dev))
+
+    def checks(self, compare, check):
+        super().checks(compare, check)
+        # the G2 group law at 12 words is not ported to the card: it raises
+        g2 = self.g2
+        G = g2.generator_jac(device=self.dev)
+        try:
+            g2.scalar_mul(type(G)(*(c[None] for c in G)), g2.fr.from_int(
+                [3], mont=False, device=self.dev))
+            raised = False
+        except NotImplementedError:
+            raised = True
+        check(raised, f"{self.NAME} G2 scalar_mul on the card raises "
+              "NotImplementedError")
 
 
 class G2MsmSlice:
@@ -1426,6 +1613,13 @@ def main() -> int:
     g2msm = G2MsmSlice(dev, nprng)
     kzg = KzgSlice(dev, nprng)
     small = SmallFieldSlice(dev, np.random.default_rng(SEED + 6))
+    # bls12-381 and bls12-377 at 12-word Fp: the G1 MSM at 2^12 (an
+    # EIP-4844 blob), 2^16 and 2^20, and the pairing
+    bls_rng = np.random.default_rng(SEED + 12)
+    bls_msm = [MsmSlice(dev, bls_rng, sizes=(12, 16, 20), stark_log=None,
+                        name=f"{c}_g1") for c in ("bls12_381", "bls12_377")]
+    bls_pair = [Bls12PairingSlice(dev, bls_rng, c)
+                for c in ("bls12_381", "bls12_377")]
     ntt_kernels = ("mont_mul", "ntt_radix2_stage", "ntt_radix2_block",
                    "ntt_four_step")
     wrappers = {"mont_mul": kernels.mont_mul,
@@ -1435,15 +1629,30 @@ def main() -> int:
                 "vm_execute": vm.vm_execute, **g2msm.wrappers,
                 **small.wrappers}
 
+    def read_counts() -> dict:
+        """{kernel row: launches}: a kernel built at 8 and 12 words counts
+        its 8-word launches under its name and its 12-word ones under
+        name + W12."""
+        counts = {}
+        for name, w in wrappers.items():
+            if name in W12_KERNELS:
+                counts[name] = w.launches_by_width.get(8, 0)
+                counts[name + W12] = w.launches_by_width.get(12, 0)
+            else:
+                counts[name] = w.launches
+        return counts
+
     def drive(path: str, run, kernel_names) -> dict:
-        """Counts to 0, the path, counts read: {kernel: launches}."""
+        """Counts to 0, the path, counts read: {kernel row: launches}."""
         for w in wrappers.values():
             w.launches = 0
+            if hasattr(w, "launches_by_width"):
+                w.launches_by_width.clear()
         seconds = run()
-        counts = {name: w.launches for name, w in wrappers.items()}
+        counts = read_counts()
         print(f"{path} path: " + ", ".join(
-            f"{k}={v}" for k, v in counts.items()) + f" ({seconds:.2f} s)",
-            flush=True)
+            f"{k}={v}" for k, v in counts.items() if v)
+            + f" ({seconds:.2f} s)", flush=True)
         for name in kernel_names:
             check(counts[name] > 0,
                   f"{name} launched on the {path} path ({counts[name]})")
@@ -1489,12 +1698,21 @@ def main() -> int:
     g2_counts = drive("G2 MSM", g2msm.main_path, g2msm.KERNELS)
     kzg_counts = drive("KZG", kzg.main_path, kzg.KERNELS)
     small_counts = drive("small fields", small.main_path, small.KERNELS)
+    bls_counts = [drive(f"{sl.spec.name} MSM", sl.main_path, sl.kernels)
+                  for sl in bls_msm]
+    bls_counts += [drive(f"{sl.NAME} pairing", sl.main_path, sl.kernels)
+                   for sl in bls_pair]
     path_counts = (ntt_counts, msm_counts, pair_counts, g2_counts,
-                   kzg_counts, small_counts)
-    launches = {name: sum(c[name] for c in path_counts) for name in wrappers}
+                   kzg_counts, small_counts, *bls_counts)
+    row_names = list(wrappers) + [k + W12 for k in W12_KERNELS]
+    launches = {name: sum(c[name] for c in path_counts)
+                for name in row_names}
+    for name in W12_KERNELS:
+        check(launches[name + W12] > 0, f"{name} launched at 12 words on "
+              f"the bls12 paths ({launches[name + W12]})")
 
     # ---------------------------------------------------------------- phase 2
-    err = {name: 0 for name in wrappers}
+    err = {name: 0 for name in row_names}
 
     def compare(name: str, got: torch.Tensor, want: torch.Tensor,
                 what: str) -> None:
@@ -1600,6 +1818,8 @@ def main() -> int:
     g2msm.checks(compare, check)
     kzg.checks(compare, check)
     small.checks(compare, check)
+    for sl in (*bls_msm, *bls_pair):
+        sl.checks(compare, check)
 
     # ---------------------------------------------------------------- phase 3
     def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
@@ -1694,6 +1914,11 @@ def main() -> int:
     g2msm.timings(cuda_ms, timings, kernel_rows)
     kzg.timings(cuda_ms, timings, kernel_rows)
     small.timings(cuda_ms, timings, kernel_rows)
+    # the kernels line takes each 12-word row from bls12-381; bls12-377's
+    # rows are in the timings line
+    for sl, into in ((bls_msm[0], kernel_rows), (bls_msm[1], {}),
+                     (bls_pair[0], kernel_rows), (bls_pair[1], {})):
+        sl.timings(cuda_ms, timings, into)
 
     kernel_line = []
     sources = {
@@ -1732,11 +1957,12 @@ def main() -> int:
             "gnark_crypto_tpu/field/pallas/point_add2.py:367"),
         **SmallFieldSlice.SOURCES,
     }
-    for name in wrappers:
+    for name in row_names:
         r = kernel_rows[name]
+        base = name.removesuffix(W12)
         kernel_line.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": sources[base][0],
+            "replaces": sources[base][1], "launches": launches[name],
             "max_abs_err": err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})

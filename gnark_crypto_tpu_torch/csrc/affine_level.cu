@@ -1,17 +1,19 @@
 // One level of the MSM's batch-affine bucket tree, in two kernels around
-// the batched inversion of the denominators.
+// the batched inversion of the denominators, at W = 8 and W = 12 words.
 //
 // Replaces the Pallas kernels gnark_crypto_tpu/field/pallas/point_add.py
 // `affine_prep` (`_prep_kernel`) and `affine_finish` (`_finish_kernel`).
 // There the per-lane mask bits travel as (8, N) int32 tiles; here as one
 // int32 per lane. One thread per lane of the level (csrc/point.cuh cores).
 //
-// Bounds on the H100: both move far more bytes than they compute.
-// * affine_prep: reads l_suf and r_pre (128 bytes), writes den, num and the
-//   mask bits (68 bytes); 1 product on doubling lanes only.
+// Bounds on the H100: both move far more bytes than they compute (an
+// element is 4W bytes: 32 at W = 8, 48 at W = 12).
+// * affine_prep: reads l_suf and r_pre (4 elements), writes den, num and
+//   the mask bits (2 elements and 4 bytes); 1 product on doubling lanes
+//   only.
 // * affine_finish: reads the four partials, num, 1/den and two bit words
-//   (328 bytes), writes pre, suf, the emitted point and its z (224 bytes);
-//   3 products.
+//   (10 elements and 8 bytes), writes pre, suf, the emitted point and its z
+//   (7 elements); 3 products.
 // So a level is two passes over device memory at 3.35 TB/s, and the design
 // keeps each to one read of its inputs and one write of its outputs.
 //
@@ -22,9 +24,7 @@
 
 namespace {
 
-using gct::Elem;
-
-template <bool A_ZERO>
+template <int W, bool A_ZERO>
 __global__ void affine_prep_kernel(const uint32_t* __restrict__ px,
                                    const uint32_t* __restrict__ py,
                                    const uint32_t* __restrict__ qx,
@@ -32,18 +32,20 @@ __global__ void affine_prep_kernel(const uint32_t* __restrict__ px,
                                    uint32_t* __restrict__ den,
                                    uint32_t* __restrict__ num,
                                    int* __restrict__ maskbits, long long n,
-                                   gct::FieldConst fc, gct::CurveConst cc) {
+                                   gct::FieldConstT<W> fc,
+                                   gct::CurveConstT<gct::ElemT<W>> cc) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const long long o = i * gct::W;
-  Elem d, u;
+  const long long o = i * W;
+  gct::ElemT<W> d, u;
   maskbits[i] = gct::affine_prep<A_ZERO>(
-      gct::load_elem(px + o), gct::load_elem(py + o), gct::load_elem(qx + o),
-      gct::load_elem(qy + o), d, u, fc, cc);
+      gct::load_elem<W>(px + o), gct::load_elem<W>(py + o),
+      gct::load_elem<W>(qx + o), gct::load_elem<W>(qy + o), d, u, fc, cc);
   gct::store_elem(den + o, d);
   gct::store_elem(num + o, u);
 }
 
+template <int W>
 __global__ void affine_finish_kernel(
     const uint32_t* __restrict__ lpx, const uint32_t* __restrict__ lpy,
     const uint32_t* __restrict__ lsx, const uint32_t* __restrict__ lsy,
@@ -54,19 +56,20 @@ __global__ void affine_finish_kernel(
     uint32_t* __restrict__ prex, uint32_t* __restrict__ prey,
     uint32_t* __restrict__ sufx, uint32_t* __restrict__ sufy,
     uint32_t* __restrict__ ptax, uint32_t* __restrict__ ptay,
-    uint32_t* __restrict__ za, long long n, gct::FieldConst fc,
-    gct::CurveConst cc) {
+    uint32_t* __restrict__ za, long long n, gct::FieldConstT<W> fc,
+    gct::CurveConstT<gct::ElemT<W>> cc) {
+  using Elem = gct::ElemT<W>;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const long long o = i * gct::W;
-  const Elem px = gct::load_elem(lsx + o), py = gct::load_elem(lsy + o);
+  const long long o = i * W;
+  const Elem px = gct::load_elem<W>(lsx + o), py = gct::load_elem<W>(lsy + o);
   const int tb = treebits[i];
   const bool eq = tb & 1, l_single = tb & 2, r_single = tb & 4;
   Elem mx, my;
   if (eq) {  // mid = l_suf + r_pre is read only where the runs meet
-    gct::affine_sum(px, py, gct::load_elem(rpx + o), gct::load_elem(rpy + o),
-                    gct::load_elem(num + o), gct::load_elem(dinv + o),
-                    maskbits[i], mx, my, fc);
+    gct::affine_sum(px, py, gct::load_elem<W>(rpx + o),
+                    gct::load_elem<W>(rpy + o), gct::load_elem<W>(num + o),
+                    gct::load_elem<W>(dinv + o), maskbits[i], mx, my, fc);
   } else {
     mx = px;
     my = py;
@@ -75,12 +78,12 @@ __global__ void affine_finish_kernel(
   gct::store_elem(ptax + o, mx);
   gct::store_elem(ptay + o, my);
   gct::store_elem(za + o, (gct::is_zero(mx) && gct::is_zero(my))
-                              ? gct::zero_elem() : cc.one);
+                              ? Elem{} : cc.one);
   const bool to_pre = l_single && eq, to_suf = r_single && eq;
-  gct::store_elem(prex + o, to_pre ? mx : gct::load_elem(lpx + o));
-  gct::store_elem(prey + o, to_pre ? my : gct::load_elem(lpy + o));
-  gct::store_elem(sufx + o, to_suf ? mx : gct::load_elem(rsx + o));
-  gct::store_elem(sufy + o, to_suf ? my : gct::load_elem(rsy + o));
+  gct::store_elem(prex + o, to_pre ? mx : gct::load_elem<W>(lpx + o));
+  gct::store_elem(prey + o, to_pre ? my : gct::load_elem<W>(lpy + o));
+  gct::store_elem(sufx + o, to_suf ? mx : gct::load_elem<W>(rsx + o));
+  gct::store_elem(sufy + o, to_suf ? my : gct::load_elem<W>(rsy + o));
 }
 
 constexpr int kThreads = 128;
@@ -91,39 +94,46 @@ unsigned blocks_for(long long n) {
 
 }  // namespace
 
-// curve_words: a in Montgomery form (8 words), then Montgomery one (8).
+// n_words: 8 or 12; curve_words: a in Montgomery form (n_words words), then
+// Montgomery one (n_words).
 extern "C" int gct_affine_prep(const void* px, const void* py, const void* qx,
                                const void* qy, void* den, void* num,
-                               void* maskbits, long long n,
+                               void* maskbits, long long n, int n_words,
                                const uint32_t* field_words,
                                const uint32_t* curve_words, int a_is_zero,
                                void* stream) {
-  if (n <= 0) return 0;
-  const gct::FieldConst fc = gct::field_const(field_words);
-  const gct::CurveConst cc = gct::curve_const(curve_words);
-  auto k = a_is_zero ? affine_prep_kernel<true> : affine_prep_kernel<false>;
-  k<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)qx,
-      (const uint32_t*)qy, (uint32_t*)den, (uint32_t*)num, (int*)maskbits, n,
-      fc, cc);
-  return (int)cudaGetLastError();
+  return gct::for_width(n_words, [&](auto width) {
+    constexpr int W = decltype(width)::value;
+    if (n <= 0) return 0;
+    auto k = a_is_zero ? affine_prep_kernel<W, true>
+                       : affine_prep_kernel<W, false>;
+    k<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)qx,
+        (const uint32_t*)qy, (uint32_t*)den, (uint32_t*)num, (int*)maskbits,
+        n, gct::field_const<W>(field_words), gct::curve_const<W>(curve_words));
+    return (int)cudaGetLastError();
+  });
 }
 
-// in: the ten (n, 8) inputs l_pre.x, l_pre.y, l_suf.x, l_suf.y, r_pre.x,
-// r_pre.y, r_suf.x, r_suf.y, num, dinv; out: the seven (n, 8) outputs
-// pre.x, pre.y, suf.x, suf.y, pt_a.x, pt_a.y, z_a.
+// in: the ten (n, n_words) inputs l_pre.x, l_pre.y, l_suf.x, l_suf.y,
+// r_pre.x, r_pre.y, r_suf.x, r_suf.y, num, dinv; out: the seven
+// (n, n_words) outputs pre.x, pre.y, suf.x, suf.y, pt_a.x, pt_a.y, z_a.
 extern "C" int gct_affine_finish(const void* const* in, const void* maskbits,
                                  const void* treebits, void* const* out,
-                                 long long n, const uint32_t* field_words,
+                                 long long n, int n_words,
+                                 const uint32_t* field_words,
                                  const uint32_t* curve_words, void* stream) {
-  if (n <= 0) return 0;
-  const gct::FieldConst fc = gct::field_const(field_words);
-  const gct::CurveConst cc = gct::curve_const(curve_words);
-  const uint32_t* const* i = (const uint32_t* const*)in;
-  uint32_t* const* o = (uint32_t* const*)out;
-  affine_finish_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7], i[8], i[9],
-      (const int*)maskbits, (const int*)treebits, o[0], o[1], o[2], o[3],
-      o[4], o[5], o[6], n, fc, cc);
-  return (int)cudaGetLastError();
+  return gct::for_width(n_words, [&](auto width) {
+    constexpr int W = decltype(width)::value;
+    if (n <= 0) return 0;
+    const uint32_t* const* i = (const uint32_t* const*)in;
+    uint32_t* const* o = (uint32_t* const*)out;
+    affine_finish_kernel<W><<<blocks_for(n), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+        i[0], i[1], i[2], i[3], i[4], i[5], i[6], i[7], i[8], i[9],
+        (const int*)maskbits, (const int*)treebits, o[0], o[1], o[2], o[3],
+        o[4], o[5], o[6], n, gct::field_const<W>(field_words),
+        gct::curve_const<W>(curve_words));
+    return (int)cudaGetLastError();
+  });
 }

@@ -1,56 +1,75 @@
-// Montgomery arithmetic on 8 x 32-bit words (bn254 Fr/Fp, R = 2^256).
-// The wrappers admit fields with q < 2^255 only (field/kernels.py).
+// Montgomery arithmetic on W x 32-bit words (R = 2^(32W)), as templates
+// over W, instantiated at W = 8 (bn254 Fr/Fp, the stark curve) and W = 12
+// (bls12-381 Fp, bls12-377 Fp, bw6-761 Fr). The wrappers admit a width only
+// for q < 2^(32W-1) (field/kernels.py), which reduce_once needs.
 //
 // Shared by every kernel of this directory. Elements are canonical (< q),
-// little-endian words, 32 bytes each, so one element is two 16-byte loads.
-// The product is a word-serial CIOS with 64-bit partial products: 136
-// 32x32->64 multiply-adds per product (64 for a*b, 64 for m*q, 8 for m).
+// little-endian words, 4W bytes each, so one element is W/4 16-byte loads.
+// The product is a word-serial CIOS with 64-bit partial products: 2W^2 + W
+// 32x32->64 multiply-adds per product (W^2 for a*b, W^2 for m*q, W for m):
+// 136 at W = 8, 300 at W = 12.
+//
+// Kernels built at 8 words only (the NTT, Fp2) use the names at the end:
+// W, Elem, FieldConst, field_const and load_elem without a width.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace gct {
 
-constexpr int W = 8;  // words per element
-
-struct FieldConst {
+template <int W>
+struct FieldConstT {
   uint32_t q[W];
   uint32_t qinv;  // -q^-1 mod 2^32
 };
 
 // Host: q words followed by qinv, as the Python wrappers pass them.
-inline FieldConst field_const(const uint32_t* words) {
-  FieldConst fc;
+template <int W>
+inline FieldConstT<W> field_const(const uint32_t* words) {
+  FieldConstT<W> fc;
   for (int i = 0; i < W; ++i) fc.q[i] = words[i];
   fc.qinv = words[W];
   return fc;
 }
 
-struct Elem {
+template <int W>
+struct ElemT {
+  static_assert(W % 4 == 0, "an element is whole 16-byte loads");
   uint32_t w[W];
 };
 
-__device__ __forceinline__ Elem load_elem(const uint32_t* p) {
+template <int W>
+__device__ __forceinline__ ElemT<W> load_elem(const uint32_t* p) {
   const uint4* v = reinterpret_cast<const uint4*>(p);
-  const uint4 a = __ldg(v);
-  const uint4 b = __ldg(v + 1);
-  Elem e;
-  e.w[0] = a.x; e.w[1] = a.y; e.w[2] = a.z; e.w[3] = a.w;
-  e.w[4] = b.x; e.w[5] = b.y; e.w[6] = b.z; e.w[7] = b.w;
+  ElemT<W> e;
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k) {
+    const uint4 a = __ldg(v + k);
+    e.w[4 * k] = a.x;
+    e.w[4 * k + 1] = a.y;
+    e.w[4 * k + 2] = a.z;
+    e.w[4 * k + 3] = a.w;
+  }
   return e;
 }
 
-__device__ __forceinline__ void store_elem(uint32_t* p, const Elem& e) {
+template <int W>
+__device__ __forceinline__ void store_elem(uint32_t* p, const ElemT<W>& e) {
   uint4* v = reinterpret_cast<uint4*>(p);
-  v[0] = make_uint4(e.w[0], e.w[1], e.w[2], e.w[3]);
-  v[1] = make_uint4(e.w[4], e.w[5], e.w[6], e.w[7]);
+#pragma unroll
+  for (int k = 0; k < W / 4; ++k)
+    v[k] = make_uint4(e.w[4 * k], e.w[4 * k + 1], e.w[4 * k + 2],
+                      e.w[4 * k + 3]);
 }
 
-// a + top*2^256 - q if that is >= 0, else a. Needs a + top*2^256 < 2q.
-__device__ __forceinline__ Elem reduce_once(const Elem& a, uint32_t top,
-                                            const FieldConst& fc) {
-  Elem d;
+// a + top*2^(32W) - q if that is >= 0, else a. Needs a + top*2^(32W) < 2q.
+template <int W>
+__device__ __forceinline__ ElemT<W> reduce_once(const ElemT<W>& a,
+                                                uint32_t top,
+                                                const FieldConstT<W>& fc) {
+  ElemT<W> d;
   uint32_t borrow = 0;
 #pragma unroll
   for (int i = 0; i < W; ++i) {
@@ -61,9 +80,11 @@ __device__ __forceinline__ Elem reduce_once(const Elem& a, uint32_t top,
   return (top || !borrow) ? d : a;
 }
 
-__device__ __forceinline__ Elem add_mod(const Elem& a, const Elem& b,
-                                        const FieldConst& fc) {
-  Elem s;
+template <int W>
+__device__ __forceinline__ ElemT<W> add_mod(const ElemT<W>& a,
+                                            const ElemT<W>& b,
+                                            const FieldConstT<W>& fc) {
+  ElemT<W> s;
   uint32_t carry = 0;
 #pragma unroll
   for (int i = 0; i < W; ++i) {
@@ -74,9 +95,11 @@ __device__ __forceinline__ Elem add_mod(const Elem& a, const Elem& b,
   return reduce_once(s, carry, fc);
 }
 
-__device__ __forceinline__ Elem sub_mod(const Elem& a, const Elem& b,
-                                        const FieldConst& fc) {
-  Elem d;
+template <int W>
+__device__ __forceinline__ ElemT<W> sub_mod(const ElemT<W>& a,
+                                            const ElemT<W>& b,
+                                            const FieldConstT<W>& fc) {
+  ElemT<W> d;
   uint32_t borrow = 0;
 #pragma unroll
   for (int i = 0; i < W; ++i) {
@@ -98,10 +121,11 @@ __device__ __forceinline__ Elem sub_mod(const Elem& a, const Elem& b,
 
 // a / 2 mod q (q odd): (a + q) / 2 for odd a, a / 2 for even a, with the
 // carry out of a + q shifted back in. Input < q; output canonical.
-__device__ __forceinline__ Elem halve_mod(const Elem& a,
-                                          const FieldConst& fc) {
+template <int W>
+__device__ __forceinline__ ElemT<W> halve_mod(const ElemT<W>& a,
+                                              const FieldConstT<W>& fc) {
   const uint32_t odd = a.w[0] & 1u;
-  Elem t;
+  ElemT<W> t;
   uint32_t carry = 0;
 #pragma unroll
   for (int i = 0; i < W; ++i) {
@@ -109,16 +133,18 @@ __device__ __forceinline__ Elem halve_mod(const Elem& a,
     t.w[i] = (uint32_t)s;
     carry = (uint32_t)(s >> 32);
   }
-  Elem r;
+  ElemT<W> r;
 #pragma unroll
   for (int i = 0; i < W - 1; ++i) r.w[i] = (t.w[i] >> 1) | (t.w[i + 1] << 31);
   r.w[W - 1] = (t.w[W - 1] >> 1) | (carry << 31);
   return r;
 }
 
-// a * b * 2^-256 mod q (CIOS). Inputs < q; output canonical.
-__device__ __forceinline__ Elem mont_mul(const Elem& a, const Elem& b,
-                                         const FieldConst& fc) {
+// a * b * 2^(-32W) mod q (CIOS). Inputs < q; output canonical.
+template <int W>
+__device__ __forceinline__ ElemT<W> mont_mul(const ElemT<W>& a,
+                                             const ElemT<W>& b,
+                                             const FieldConstT<W>& fc) {
   uint32_t t[W + 2];
 #pragma unroll
   for (int i = 0; i < W + 2; ++i) t[i] = 0;
@@ -147,10 +173,38 @@ __device__ __forceinline__ Elem mont_mul(const Elem& a, const Elem& b,
     t[W - 1] = (uint32_t)s;
     t[W] = t[W + 1] + (uint32_t)(s >> 32);
   }
-  Elem r;
+  ElemT<W> r;
 #pragma unroll
   for (int j = 0; j < W; ++j) r.w[j] = t[j];
   return reduce_once(r, t[W], fc);
+}
+
+// Host: f(std::integral_constant<int, W>{}) for the width n_words, one of
+// the instantiated widths; any other width returns cudaErrorInvalidValue,
+// and the wrapper raises on it.
+template <class F>
+inline int for_width(int n_words, F&& f) {
+  switch (n_words) {
+    case 8:
+      return f(std::integral_constant<int, 8>{});
+    case 12:
+      return f(std::integral_constant<int, 12>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The 8-word instantiation, for the kernels built at 8 words only.
+constexpr int W = 8;  // words per element
+using Elem = ElemT<W>;
+using FieldConst = FieldConstT<W>;
+
+inline FieldConst field_const(const uint32_t* words) {
+  return field_const<W>(words);
+}
+
+__device__ __forceinline__ Elem load_elem(const uint32_t* p) {
+  return load_elem<W>(p);
 }
 
 }  // namespace gct

@@ -1,8 +1,9 @@
-// Short-Weierstrass point arithmetic on 8-word Montgomery elements: the
-// device cores of csrc/point_add.cu and csrc/affine_level.cu, and over Fp2
-// (csrc/fp2.cuh) of csrc/point_add2.cu and csrc/affine_level2.cu. Each core
-// is a template over the element type E (Elem or Elem2) and calls the
-// field ops by overload, as the JAX package's cores take an ops tuple.
+// Short-Weierstrass point arithmetic on W-word Montgomery elements (W = 8
+// and 12): the device cores of csrc/point_add.cu and csrc/affine_level.cu,
+// and over Fp2 (csrc/fp2.cuh, 8 words) of csrc/point_add2.cu and
+// csrc/affine_level2.cu. Each core is a template over the element type E
+// (ElemT<W> or Elem2) and its field constants FC, and calls the field ops by
+// overload, as the JAX package's cores take an ops tuple.
 //
 // Counterparts of the Pallas cores in gnark_crypto_tpu/field/pallas/
 // point_add.py (`_dbl_core`, `_add_core_ops`, `_prep_kernel`,
@@ -27,11 +28,11 @@ struct CurveConstT {
   E a;
   E one;
 };
-using CurveConst = CurveConstT<Elem>;
 
-// Host: a's words, then one's words, as the Python wrappers pass them.
-inline CurveConst curve_const(const uint32_t* words) {
-  CurveConst cc;
+// Host: a's W words, then one's W words, as the Python wrappers pass them.
+template <int W>
+inline CurveConstT<ElemT<W>> curve_const(const uint32_t* words) {
+  CurveConstT<ElemT<W>> cc;
   for (int i = 0; i < W; ++i) {
     cc.a.w[i] = words[i];
     cc.one.w[i] = words[W + i];
@@ -43,40 +44,33 @@ template <class E>
 struct JacT {
   E x, y, z;
 };
-using JacPt = JacT<Elem>;
 
-__device__ __forceinline__ bool is_zero(const Elem& a) {
+template <int W>
+__device__ __forceinline__ bool is_zero(const ElemT<W>& a) {
   uint32_t o = 0;
 #pragma unroll
   for (int i = 0; i < W; ++i) o |= a.w[i];
   return o == 0;
 }
 
-__device__ __forceinline__ bool equal(const Elem& a, const Elem& b) {
+template <int W>
+__device__ __forceinline__ bool equal(const ElemT<W>& a, const ElemT<W>& b) {
   uint32_t o = 0;
 #pragma unroll
   for (int i = 0; i < W; ++i) o |= a.w[i] ^ b.w[i];
   return o == 0;
 }
 
-__device__ __forceinline__ Elem zero_elem() {
-  Elem e;
-#pragma unroll
-  for (int i = 0; i < W; ++i) e.w[i] = 0;
-  return e;
-}
-
-template <class E>
-__device__ __forceinline__ E dbl_mod(const E& a, const FieldConst& fc) {
+template <class E, class FC>
+__device__ __forceinline__ E dbl_mod(const E& a, const FC& fc) {
   return add_mod(a, a, fc);
 }
 
 // dbl-2009-l (a = 0) / dbl-2007-bl (reference g1.go:397 DoubleAssign), as
 // `_dbl_core`. Infinity needs no mask: Z3 = 2*Y1*Z1 = 0 when Z1 = 0.
 // 7 products, 10 when a != 0.
-template <bool A_ZERO, class E>
-__device__ __forceinline__ JacT<E> jac_double(const JacT<E>& p,
-                                              const FieldConst& fc,
+template <bool A_ZERO, class E, class FC>
+__device__ __forceinline__ JacT<E> jac_double(const JacT<E>& p, const FC& fc,
                                               const CurveConstT<E>& cc) {
   const E A = mont_mul(p.x, p.x, fc);
   const E B = mont_mul(p.y, p.y, fc);
@@ -103,9 +97,9 @@ __device__ __forceinline__ JacT<E> jac_double(const JacT<E>& p,
 // precedence: P == Q doubles, P == -Q gives infinity, then an infinite P
 // returns Q and an infinite Q returns P. 16 products, plus the doubling's
 // where a lane doubles.
-template <bool A_ZERO, class E>
+template <bool A_ZERO, class E, class FC>
 __device__ __forceinline__ JacT<E> jac_add(const JacT<E>& p, const JacT<E>& q,
-                                           const FieldConst& fc,
+                                           const FC& fc,
                                            const CurveConstT<E>& cc) {
   const bool q_inf = is_zero(q.z);
   if (q_inf) return p;
@@ -144,11 +138,10 @@ constexpr int MB_DBL = 1, MB_INFOUT = 2, MB_PINF = 4, MB_QINF = 8;
 // Tree-level prep (`_prep_kernel`): the shared denominator (2y when P == Q,
 // else qx - px; 1 where that is 0), the numerator (3x^2 + a when P == Q,
 // else qy - py) and the mask bits. 1 product, on doubling lanes only.
-template <bool A_ZERO, class E>
+template <bool A_ZERO, class E, class FC>
 __device__ __forceinline__ int affine_prep(const E& px, const E& py,
                                            const E& qx, const E& qy,
-                                           E& den, E& num,
-                                           const FieldConst& fc,
+                                           E& den, E& num, const FC& fc,
                                            const CurveConstT<E>& cc) {
   const bool p_inf = is_zero(px) && is_zero(py);
   const bool q_inf = is_zero(qx) && is_zero(qy);
@@ -173,12 +166,12 @@ __device__ __forceinline__ int affine_prep(const E& px, const E& py,
 
 // The complete affine sum P + Q from the inverted denominator
 // (`_finish_kernel`'s mid): 3 products.
-template <class E>
+template <class E, class FC>
 __device__ __forceinline__ void affine_sum(const E& px, const E& py,
                                            const E& qx, const E& qy,
                                            const E& num, const E& dinv,
                                            int bits, E& mx, E& my,
-                                           const FieldConst& fc) {
+                                           const FC& fc) {
   if (bits & MB_QINF) {
     mx = px;
     my = py;

@@ -2,9 +2,9 @@
 
 ``mont_mul(spec, x, y)`` on ``(N, W)`` int32 word tensors returns
 ``x * y * 2^(-32W) mod q``, canonical. A CUDA tensor goes to the hand-written
-kernel ``csrc/mont_mul.cu`` (8-word CIOS, one thread per element), a CPU
-tensor to :func:`mont_mul_plain`. The two agree bit for bit, because both
-return the canonical residue.
+kernel ``csrc/mont_mul.cu`` (W-word CIOS at W = 8 or 12, one thread per
+element), a CPU tensor to :func:`mont_mul_plain`. The two agree bit for
+bit, because both return the canonical residue.
 
 The plain version cannot use uint32/uint64 arithmetic (PyTorch on the CPU
 has no shifts or compares for them), so it splits each word into two 16-bit
@@ -27,6 +27,10 @@ from gnark_crypto_tpu_torch.utils import build
 
 M16 = 0xFFFF
 M32 = 0xFFFFFFFF
+
+# the widths csrc/field.cuh instantiates (gct::for_width): the field,
+# exponent, point and VM kernels are built at both
+FIELD_WIDTHS = (8, 12)
 
 
 # ---------------------------------------------------------------------------
@@ -111,15 +115,25 @@ def mont_mul_plain(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-def check_kernel_args(spec: FieldSpec, what: str, *ts: torch.Tensor
-                      ) -> None:
-    """What every CUDA wrapper checks before a launch: an 8-word field with
-    q < 2^255, and int32 (N, 8) tensors, contiguous, 16-byte aligned, on
-    one device."""
-    if spec.n_words != 8 or spec.modulus >> 255:
+def check_width(spec: FieldSpec, what: str, widths: tuple[int, ...]) -> None:
+    """Raise unless the kernel ``what``, built for ``widths`` words, takes
+    ``spec``: W in widths and q < 2^(32W - 1), the bound of the kernels'
+    ``reduce_once`` (``csrc/field.cuh``)."""
+    W = spec.n_words
+    if W not in widths or spec.modulus >> (32 * W - 1):
         raise NotImplementedError(
-            f"{spec.name}: the CUDA kernels take 8-word fields with q < 2^255"
-            " (bn254 Fr/Fp); other fields are not ported to them yet")
+            f"{what}: {spec.name} ({W} words, {spec.modulus.bit_length()} "
+            f"bits) is not ported to its CUDA kernel, which takes "
+            f"{' or '.join(map(str, widths))}-word fields with "
+            "q < 2^(32W-1)")
+
+
+def check_kernel_args(spec: FieldSpec, what: str, *ts: torch.Tensor,
+                      widths: tuple[int, ...]) -> None:
+    """What every CUDA wrapper checks before a launch: a field of a width
+    its kernel was built for (:func:`check_width`), and int32 (N, W)
+    tensors, contiguous, 16-byte aligned, on one device."""
+    check_width(spec, what, widths)
     for t in ts:
         if (t.dtype != torch.int32 or t.dim() != 2
                 or t.shape[1] != spec.n_words):
@@ -131,23 +145,33 @@ def check_kernel_args(spec: FieldSpec, what: str, *ts: torch.Tensor
                              "contiguous and 16-byte aligned")
 
 
+def count_launch(wrapper, spec: FieldSpec) -> None:
+    """One launch of ``wrapper``'s kernel at ``spec``'s width: adds one to
+    ``wrapper.launches`` (all widths) and to
+    ``wrapper.launches_by_width[W]``."""
+    wrapper.launches += 1
+    by_width = wrapper.launches_by_width
+    by_width[spec.n_words] = by_width.get(spec.n_words, 0) + 1
+
+
 def mont_mul(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor
              ) -> torch.Tensor:
     """Montgomery product of two (N, W) int32 tensors on one device."""
     if not x.is_cuda:
         return mont_mul_plain(spec, x, y)
-    check_kernel_args(spec, "mont_mul", x, y)
+    check_kernel_args(spec, "mont_mul", x, y, widths=FIELD_WIDTHS)
     if y.shape != x.shape:
         raise ValueError("mont_mul: x and y differ in shape")
     out = torch.empty_like(x)
     fn = build.function("mont_mul", "gct_mont_mul", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p])
-    mont_mul.launches += 1
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    count_launch(mont_mul, spec)
     build.check(fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.shape[0],
-                   build.field_words(spec), build.stream_ptr(x)),
-                "mont_mul launch")
+                   spec.n_words, build.field_words(spec),
+                   build.stream_ptr(x)), "mont_mul launch")
     return out
 
 
 mont_mul.launches = 0
+mont_mul.launches_by_width = {}

@@ -13,11 +13,12 @@ the JAX wrapper's argument order, with the curve's ``a`` as a plain int:
 * :func:`jac_fold_windows`: the Horner fold of the per-window totals.
 
 A CUDA tensor goes to ``csrc/point_add.cu`` or ``csrc/affine_level.cu``
-(cores in ``csrc/point.cuh``), a CPU tensor to the ``*_plain`` version
-here. The plain versions use only :func:`mont_mul_plain` and the plain
-``mont.add``/``mont.sub``, so on the card they launch no kernel. Both
-follow the JAX formulas in the same order with canonical arithmetic, so
-they agree bit for bit, and with the JAX package as integers.
+(cores in ``csrc/point.cuh``; W = 8 or 12 words), a CPU tensor to the
+``*_plain`` version here. The plain versions use only
+:func:`mont_mul_plain` and the plain ``mont.add``/``mont.sub``, so on the
+card they launch no kernel. Both follow the JAX formulas in the same
+order with canonical arithmetic, so they agree bit for bit, and with the
+JAX package as integers.
 
 Infinity is all-zero: (0, 0, 0) in Jacobian and (0, 0) in affine
 coordinates. Mask bits (``affine_prep``'s third output, int32 (N,)):
@@ -33,7 +34,8 @@ import torch
 
 from gnark_crypto_tpu_torch.field import mont
 from gnark_crypto_tpu_torch.field.kernels import (
-    check_kernel_args, const_words, mont_mul_plain, to_i32)
+    FIELD_WIDTHS, check_kernel_args, const_words, count_launch,
+    mont_mul_plain, to_i32)
 from gnark_crypto_tpu_torch.specs.field import FieldSpec, int_to_words
 from gnark_crypto_tpu_torch.utils import build
 
@@ -245,7 +247,7 @@ def _curve_args(spec: FieldSpec, a_int: int):
 
 
 def _check(spec: FieldSpec, what: str, *coords: torch.Tensor) -> int:
-    check_kernel_args(spec, what, *coords)
+    check_kernel_args(spec, what, *coords, widths=FIELD_WIDTHS)
     n = coords[0].shape[0]
     if any(t.shape[0] != n for t in coords):
         raise ValueError(f"{what}: coordinate tensors differ in length")
@@ -277,9 +279,9 @@ def jac_add(spec: FieldSpec, a_int: int, x1, y1, z1, x2, y2, z2) -> Coords:
     out = tuple(torch.empty_like(x1) for _ in range(3))
     cw, az = _curve_args(spec, a_int)
     fn = build.function("point_add", "gct_jac_add",
-                        [_P] * 9 + [_N, _P, _P, _I, _P])
-    jac_add.launches += 1
-    build.check(fn(*_ptrs(x1, y1, z1, x2, y2, z2, *out), n,
+                        [_P] * 9 + [_N, _I, _P, _P, _I, _P])
+    count_launch(jac_add, spec)
+    build.check(fn(*_ptrs(x1, y1, z1, x2, y2, z2, *out), n, spec.n_words,
                    build.field_words(spec), cw, az, build.stream_ptr(x1)),
                 "jac_add launch")
     return out
@@ -293,10 +295,11 @@ def jac_double(spec: FieldSpec, a_int: int, x1, y1, z1) -> Coords:
     out = tuple(torch.empty_like(x1) for _ in range(3))
     cw, az = _curve_args(spec, a_int)
     fn = build.function("point_add", "gct_jac_double",
-                        [_P] * 6 + [_N, _P, _P, _I, _P])
-    jac_double.launches += 1
-    build.check(fn(*_ptrs(x1, y1, z1, *out), n, build.field_words(spec),
-                   cw, az, build.stream_ptr(x1)), "jac_double launch")
+                        [_P] * 6 + [_N, _I, _P, _P, _I, _P])
+    count_launch(jac_double, spec)
+    build.check(fn(*_ptrs(x1, y1, z1, *out), n, spec.n_words,
+                   build.field_words(spec), cw, az, build.stream_ptr(x1)),
+                "jac_double launch")
     return out
 
 
@@ -310,9 +313,9 @@ def affine_prep(spec: FieldSpec, a_int: int, px, py, qx, qy):
     bits = torch.empty((n,), dtype=torch.int32, device=px.device)
     cw, az = _curve_args(spec, a_int)
     fn = build.function("affine_level", "gct_affine_prep",
-                        [_P] * 7 + [_N, _P, _P, _I, _P])
-    affine_prep.launches += 1
-    build.check(fn(*_ptrs(px, py, qx, qy, den, num, bits), n,
+                        [_P] * 7 + [_N, _I, _P, _P, _I, _P])
+    count_launch(affine_prep, spec)
+    build.check(fn(*_ptrs(px, py, qx, qy, den, num, bits), n, spec.n_words,
                    build.field_words(spec), cw, az, build.stream_ptr(px)),
                 "affine_prep launch")
     return den, num, bits
@@ -331,11 +334,12 @@ def affine_finish(spec: FieldSpec, a_int: int, lpx, lpy, lsx, lsy, rpx, rpy,
     out = tuple(torch.empty_like(lpx) for _ in range(7))
     cw, _ = _curve_args(spec, a_int)
     fn = build.function("affine_level", "gct_affine_finish",
-                        [_P] * 4 + [_N, _P, _P, _P])
-    affine_finish.launches += 1
+                        [_P] * 4 + [_N, _I, _P, _P, _P])
+    count_launch(affine_finish, spec)
     build.check(fn((_P * 10)(*_ptrs(*ins)), maskbits.data_ptr(),
                    treebits.data_ptr(), (_P * 7)(*_ptrs(*out)), n,
-                   build.field_words(spec), cw, build.stream_ptr(lpx)),
+                   spec.n_words, build.field_words(spec), cw,
+                   build.stream_ptr(lpx)),
                 "affine_finish launch")
     return out
 
@@ -354,13 +358,15 @@ def jac_fold_windows(spec: FieldSpec, a_int: int, x, y, z, c: int
                             device=x.device) for _ in range(3))
     cw, az = _curve_args(spec, a_int)
     fn = build.function("point_add", "gct_jac_fold_windows",
-                        [_P] * 6 + [_I, _I, _P, _P, _I, _P])
-    jac_fold_windows.launches += 1
-    build.check(fn(*_ptrs(x, y, z, *out), nwin, c, build.field_words(spec),
-                   cw, az, build.stream_ptr(x)), "jac_fold_windows launch")
+                        [_P] * 6 + [_I, _I, _I, _P, _P, _I, _P])
+    count_launch(jac_fold_windows, spec)
+    build.check(fn(*_ptrs(x, y, z, *out), nwin, c, spec.n_words,
+                   build.field_words(spec), cw, az, build.stream_ptr(x)),
+                "jac_fold_windows launch")
     return out
 
 
 for _w in (jac_add, jac_double, affine_prep, affine_finish, jac_fold_windows):
     _w.launches = 0
+    _w.launches_by_width = {}
 del _w

@@ -30,12 +30,16 @@ import ctypes
 import torch
 
 from gnark_crypto_tpu_torch.field import mont
-from gnark_crypto_tpu_torch.field.kernels import check_kernel_args
+from gnark_crypto_tpu_torch.field.kernels import check_width
 from gnark_crypto_tpu_torch.field.point_add import (
     _P, _N, _I, Coords, _check_bits, _dbl_core, _add_core, _finish_core,
     _fold_core, _Ops, _prep_core, _ptrs)
 from gnark_crypto_tpu_torch.specs.field import FieldSpec
 from gnark_crypto_tpu_torch.utils import build
+
+
+# the widths the Fp2 kernels are built for (csrc/fp2.cuh)
+WIDTHS = (8,)
 
 
 class _Ops2(_Ops):
@@ -112,8 +116,11 @@ def jac_fold_windows2_plain(spec: FieldSpec, nr: int, x, y, z, c: int
 
 def _check(spec: FieldSpec, nr: int, what: str, *coords: torch.Tensor
            ) -> int:
-    """bn254's Fp2 and int32 (N, 2, 8) coordinates, as the kernels take."""
-    check_kernel_args(spec, what)
+    """bn254's Fp2 and int32 (N, 2, 8) coordinates, as the kernels take.
+
+    ``csrc/fp2.cuh`` is built at 8 words only, so bls12 G2 (12-word Fp)
+    raises here before any launch."""
+    check_width(spec, what, WIDTHS)
     if nr != -1:
         raise NotImplementedError(
             f"{what}: the CUDA kernels take Fp2 with u^2 = -1 (bn254); "

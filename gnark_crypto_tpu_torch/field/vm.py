@@ -22,9 +22,10 @@ order, so a program built here at the reference's tile is the reference's
 program, row for row. :func:`execute` loads the entry rows (inputs and
 Montgomery constants) and calls :func:`vm_execute`: a CUDA tensor goes to
 ``csrc/vm.cu`` (one thread per lane, one block per tile, the register file
-in shared memory), a CPU tensor to :func:`vm_execute_plain`, which runs the
-same program instruction by instruction with the plain field ops. Both
-return canonical residues, so they agree bit for bit.
+in shared memory; W = 8 or 12 words), a CPU tensor to
+:func:`vm_execute_plain`, which runs the same program instruction by
+instruction with the plain field ops. Both return canonical residues, so
+they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ import numpy as np
 import torch
 
 from gnark_crypto_tpu_torch.field import mont
-from gnark_crypto_tpu_torch.field.kernels import mont_mul_plain
+from gnark_crypto_tpu_torch.field.kernels import (
+    FIELD_WIDTHS, check_width, count_launch, mont_mul_plain)
 from gnark_crypto_tpu_torch.specs.field import FieldSpec, int_to_words
 from gnark_crypto_tpu_torch.utils import build
 
@@ -302,15 +304,12 @@ def vm_execute(prog: Program, state: torch.Tensor) -> torch.Tensor:
                          f"{prog.tile} lanes")
     if not state.is_cuda:
         return vm_execute_plain(prog, state)
-    if spec.n_words != 8 or spec.modulus >> 255:
-        raise NotImplementedError(
-            f"{spec.name}: the VM kernel takes 8-word fields with q < 2^255"
-            " (bn254 Fp); other fields are not ported to it yet")
-    if (state.dtype != torch.int32 or W != 8 or not state.is_contiguous()
-            or state.data_ptr() % 16):
+    check_width(spec, "vm_execute", FIELD_WIDTHS)
+    if (state.dtype != torch.int32 or W != spec.n_words
+            or not state.is_contiguous() or state.data_ptr() % 16):
         raise ValueError("vm_execute: expected a contiguous, 16-byte aligned"
-                         f" int32 (n_entry, n_pad, 8) tensor, got "
-                         f"{state.dtype} {tuple(state.shape)}")
+                         f" int32 (n_entry, n_pad, {spec.n_words}) tensor, "
+                         f"got {state.dtype} {tuple(state.shape)}")
     smem = prog.n_regs * W * 4 * prog.tile
     if prog.tile > 1024 or smem > SMEM_BYTES:
         raise ValueError(f"vm_execute: {prog.n_regs} registers x "
@@ -322,16 +321,18 @@ def vm_execute(prog: Program, state: torch.Tensor) -> torch.Tensor:
     fn = build.function("vm", "gct_vm_execute", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    vm_execute.launches += 1
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p])
+    count_launch(vm_execute, spec)
     build.check(fn(code.data_ptr(), prog.n_instrs, omap.data_ptr(),
                    omap.shape[0], state.data_ptr(), n_entry, out.data_ptr(),
-                   n_pad, prog.tile, prog.n_regs, build.field_words(spec),
+                   n_pad, prog.tile, prog.n_regs, W, build.field_words(spec),
                    build.stream_ptr(state)), "vm_execute launch")
     return out
 
 
 vm_execute.launches = 0
+vm_execute.launches_by_width = {}
 
 
 # ---------------------------------------------------------------------------

@@ -127,7 +127,8 @@ def sub_ntt(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, log_s: int,
     if not x.is_cuda:
         return sub_ntt_plain(spec, x, tw, log_s, other, columns, dit, twist)
     check_kernel_args(spec, "ntt_four_step",
-                      *([x, tw] + ([] if twist is None else [twist])))
+                      *([x, tw] + ([] if twist is None else [twist])),
+                      widths=radix2.WIDTHS)
     n = x.shape[0]
     if (log_s > MAX_SUB_LOG or n != other << log_s
             or tw.shape[0] < max(1, (1 << log_s) >> 1)

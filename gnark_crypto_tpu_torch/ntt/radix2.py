@@ -37,6 +37,10 @@ from gnark_crypto_tpu_torch.utils import build
 DIF = "DIF"
 DIT = "DIT"
 TILE_LOG = 10  # 2^10 elements = 32 KB of shared memory per block
+# the widths the NTT kernels are built for: csrc/ntt_block.cuh's
+# shared-memory tiles hold 8-word elements (bw6 Fr at 12 and 10 words is
+# not ported to them)
+WIDTHS = (8,)
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +109,7 @@ def stage(spec: FieldSpec, x: torch.Tensor, tw0: torch.Tensor, k: int,
     """One butterfly stage of a size-2^k transform (``ntt_stage_kernel``)."""
     if not x.is_cuda:
         return stage_plain(spec, x, tw0, k, s, dit)
-    check_kernel_args(spec, "ntt_radix2 stage", x, tw0)
+    check_kernel_args(spec, "ntt_radix2 stage", x, tw0, widths=WIDTHS)
     if x.shape[0] != 1 << k or tw0.shape[0] < max(1, (1 << k) >> 1):
         raise ValueError(f"stage: expected 2^{k} elements and 2^{k - 1} "
                          "twiddles")
@@ -125,7 +129,7 @@ def block(spec: FieldSpec, x: torch.Tensor, tw0: torch.Tensor,
     """All stages of every contiguous 2^log_s block (``ntt_block_kernel``)."""
     if not x.is_cuda:
         return block_plain(spec, x, tw0, tw_shift, log_s, dit)
-    check_kernel_args(spec, "ntt_radix2 block", x, tw0)
+    check_kernel_args(spec, "ntt_radix2 block", x, tw0, widths=WIDTHS)
     n = x.shape[0]
     if n % (1 << log_s) or log_s > TILE_LOG:
         raise ValueError(f"block: n={n} is not a multiple of 2^{log_s} "

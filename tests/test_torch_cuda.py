@@ -66,10 +66,51 @@ def test_mont_mul_rejects_bad_input(cuda):
         kernels.mont_mul(SPEC, x, x.to(torch.int64))
     with pytest.raises(ValueError):
         kernels.mont_mul(SPEC, x[::2], x[::2])
-    for spec in (fs.BLS12_381_FP, fs.SECP256K1_FP):  # 12 words; q > 2^255
+    # 10, 20 and 24 words, and 8 words with q > 2^255: not built for them
+    for spec in (fs.BLS24_315_FP, fs.BW6_633_FP, fs.BW6_761_FP,
+                 fs.SECP256K1_FP, fs.SECP256R1_FR):
         y = mont.from_int(spec, [1], device=cuda)
         with pytest.raises(NotImplementedError):
             kernels.mont_mul(spec, y, y)
+        with pytest.raises(NotImplementedError):
+            exp.exp_const(spec, y, 3)
+
+
+# the 12-word fields of the kernels built at 8 and 12 words
+W12 = [fs.BLS12_381_FP, fs.BLS12_377_FP, fs.BW6_761_FR]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", W12, ids=lambda s: s.name)
+def test_mont_mul_kernel_matches_plain_12_words(cuda, spec):
+    q = spec.modulus
+    rng = random.Random(12)
+    a = [0, 1, q - 1] + [rng.randrange(q) for _ in range(4096)]
+    b = [q - 1, 0, 1] + [rng.randrange(q) for _ in range(4096)]
+    x, y = (mont.from_int(spec, v, device=cuda) for v in (a, b))
+    by_width = dict(kernels.mont_mul.launches_by_width)
+    got = kernels.mont_mul(spec, x, y)
+    assert kernels.mont_mul.launches_by_width[12] == by_width.get(12, 0) + 1
+    assert kernels.mont_mul.launches_by_width.get(8) == by_width.get(8)
+    assert torch.equal(got, kernels.mont_mul_plain(spec, x, y))
+    assert mont.to_int(spec, got[:64]) == [u * v % q
+                                           for u, v in zip(a[:64], b[:64])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", W12, ids=lambda s: s.name)
+def test_exp_const_kernel_matches_plain_12_words(cuda, spec):
+    q = spec.modulus
+    rng = random.Random(13)
+    vals = [0, 1, q - 1] + [rng.randrange(q) for _ in range(200)]
+    x = mont.from_int(spec, vals, device=cuda)
+    for e in (q - 2, 3, (q - 1) // 2, 0, 1 << 400):
+        before = exp.exp_const.launches_by_width.get(12, 0)
+        got = exp.exp_const(spec, x, e)
+        assert exp.exp_const.launches_by_width[12] == before + 1
+        assert torch.equal(got, exp.exp_const_plain(spec, x, e))
+    assert mont.to_int(spec, mont.inverse(spec, x[:8])) == [
+        pow(v, q - 2, q) for v in vals[:8]]
 
 
 @pytest.mark.cuda
@@ -112,7 +153,8 @@ def test_wrappers_count_launches_and_reject(cuda):
 
 # -- exp_const and the point kernels -----------------------------------------
 
-CURVES = ["bn254_g1", "stark_g1"]  # a = 0 and a = 1
+# a = 0 and a = 1 at 8 words; the bls12 G1 curves at 12
+CURVES = ["bn254_g1", "stark_g1", "bls12_381_g1", "bls12_377_g1"]
 
 
 def oracle_add(P, Q, p, a):
@@ -280,7 +322,7 @@ def test_point_kernels_reject(cuda):
                                             device=cuda),
                                 torch.zeros(8, dtype=torch.int32,
                                             device=cuda))
-    bls = curve_ops(cs.get_curve("bls12_381_g1"))  # 12-word Fp
+    bls = curve_ops(cs.get_curve("bls24_315_g1"))  # 10-word Fp
     with pytest.raises(NotImplementedError):
         bls.double(bls.generator_jac(device=cuda))
 
@@ -312,10 +354,91 @@ def test_vm_kernel_rejects(cuda):
         vm.vm_execute(prog, state.to(torch.int64))
     with pytest.raises(ValueError):
         vm.vm_execute(prog, state.transpose(0, 1).contiguous().transpose(0, 1))
-    bls = vm.random_program(fs.BLS12_381_FP, 50, seed=3)  # 12-word Fp
+    bls = vm.random_program(fs.BLS24_315_FP, 50, seed=3)  # 10-word Fp
     with pytest.raises(NotImplementedError):
-        vm.vm_execute(bls, torch.zeros((bls.n_entry, bls.tile, 12),
+        vm.vm_execute(bls, torch.zeros((bls.n_entry, bls.tile, 10),
                                        dtype=torch.int32, device=cuda))
+    prog12 = vm.random_program(fs.BLS12_381_FP, 50, seed=3)
+    assert prog12.n_entry == prog.n_entry
+    with pytest.raises(ValueError):  # a 12-word program on 8-word rows
+        vm.vm_execute(prog12, state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", W12[:2], ids=lambda s: s.name)
+def test_vm_kernel_matches_plain_12_words(cuda, spec):
+    """The random program of all six ops at 12 words (bls12 Fp)."""
+    prog = vm.random_program(spec, 2900, seed=19)
+    n_pad = 3 * prog.tile
+    state = vm._entry_consts(prog, str(cuda))[:, None, :].repeat(1, n_pad, 1)
+    for i, (reg, _) in enumerate(prog.entry_inputs):
+        rng = random.Random(i)
+        vals = [0, 1, spec.modulus - 1] + [
+            rng.randrange(spec.modulus) for _ in range(n_pad)]
+        state[reg] = mont.from_int(spec, vals[:n_pad], device=cuda)
+    before = vm.vm_execute.launches_by_width.get(12, 0)
+    got = vm.vm_execute(prog, state)
+    assert vm.vm_execute.launches_by_width[12] == before + 1
+    assert torch.equal(got, vm.vm_execute_plain(prog, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bls12_381", "bls12_377"])
+def test_bls12_pair_on_card_equals_golden(cuda, name):
+    """e(G1, G2) and the 2-pair check through the 12-word VM kernel."""
+    import json
+    import os
+
+    fix = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "gt_golden.json")
+    with open(fix) as f:
+        want = json.load(f)[name]["generator"]
+    g1 = curve_ops(cs.get_curve(f"{name}_g1")).generator_affine(device=cuda)
+    g2 = g2_curve(name, cuda).generator_affine(device=cuda)
+    before = vm.vm_execute.launches_by_width.get(12, 0)
+    P = Affine(g1.x[None], g1.y[None])
+    z = pairing_api.pair(name, P, g2.x[None], g2.y[None])
+    assert vm.vm_execute.launches_by_width[12] == before + 1
+    assert gt_bytes.gt_to_bytes(name, z)[0].hex() == want
+    fp = cs.get_curve(f"{name}_g1").fp
+    P2 = Affine(torch.cat([P.x, P.x]),
+                torch.cat([P.y, mont.neg(fp, P.y)]))
+    QX, QY = (torch.cat([c[None], c[None]]) for c in g2)
+    assert bool(pairing_api.pairing_check(name, P2, QX, QY))
+
+
+@pytest.mark.cuda
+def test_unported_widths_raise_before_any_kernel(cuda):
+    """On the card, bls12 G2 (12-word Fp2), its MSM and KZG set-up, and the
+    bw6-761 Fr NTT raise NotImplementedError, and launch no 8-word NTT or
+    Fp2 kernel on the way."""
+    from gnark_crypto_tpu_torch.field import point_add2
+    from gnark_crypto_tpu_torch.protocols import kzg
+
+    eight = (radix2.stage, radix2.block, four_step.sub_ntt,
+             point_add2.jac_add2, point_add2.jac_double2,
+             point_add2.affine_prep2, point_add2.affine_finish2,
+             point_add2.jac_fold_windows2)
+    before = [w.launches for w in eight]
+    for name in ("bls12_381", "bls12_377"):
+        g2 = g2_curve(name, cuda)
+        G = Jac(*(c.expand(4, -1, -1) for c in g2.generator_jac(device=cuda)))
+        with pytest.raises(NotImplementedError):
+            g2.scalar_mul(G, g2.fr.from_int([1, 2, 3, 4], mont=False,
+                                            device=cuda))
+        pts = Affine(*(c.expand(64, -1, -1).contiguous()
+                       for c in g2.generator_affine(device=cuda)))
+        with pytest.raises(NotImplementedError):
+            pippenger.msm(g2, pts, g2.fr.from_int(list(range(64)),
+                                                  mont=False, device=cuda))
+        with pytest.raises(NotImplementedError):
+            kzg.new_srs(name, 16, 12345, device=cuda)
+    dom = Domain(fs.BW6_761_FR, 1 << 14, device=cuda)
+    a = mont.from_int(fs.BW6_761_FR, list(range(1 << 14)), device=cuda)
+    for dec in ("DIF", "DIT"):
+        with pytest.raises(NotImplementedError):
+            fft.fft(dom, a, dec)
+    assert [w.launches for w in eight] == before
 
 
 @pytest.mark.cuda

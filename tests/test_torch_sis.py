@@ -6,10 +6,12 @@ seeded inputs: ``hash`` for koalabear, babybear and goldilocks at 2^10 to
 test-vector key (``set_key_sage``), other limb bounds, and ``hash_many``
 in Vortex's transversal shape (``RSis(koalabear, 42, 4, 8, 64)``). The Go
 golden files that ``tests/test_sis.py`` reads are not in this checkout, so
-the JAX package is the oracle. Hashes are compared as canonical integers;
-the tolerance is exact.
+the JAX package is the oracle, and a Python big-int negacyclic product
+where the JAX hash raises (32-bit limbs of a multi-word field). Hashes are
+compared as canonical integers; the tolerance is exact.
 """
 
+import hashlib
 import random
 
 import jax
@@ -72,6 +74,57 @@ def test_hash_other_bounds_match_jax(field, bound):
     bits = 63 if field == "goldilocks" else None
     jh, th, _ = both_hash(field, 5, bound, 1 << 10, 3, bits=bits)
     assert th == jh
+
+
+def sis_bigint(spec, seed, log_deg, bits, vals):
+    """Ring-SIS by Python big ints: the blake2b key, little-endian limbs of
+    ``bits`` bits written into the Montgomery slot (value l * R^-1, R the
+    reference's radix, which is the port's), and the negacyclic product
+    sum_i A_i * M_i mod (X^d + 1), coefficient by coefficient."""
+    q, d = spec.modulus, 1 << log_deg
+    rinv = pow(1 << (32 * spec.n_words), -1, q)
+    limbs = [(v >> (bits * k)) & ((1 << bits) - 1)
+             for v in vals for k in range(spec.n_bytes * 8 // bits)]
+    limbs += [0] * (-len(limbs) % d)
+    res = [0] * d
+    for i in range(len(limbs) // d):
+        key = [int.from_bytes(hashlib.blake2b(
+            b"SIS" + seed.to_bytes(8, "big") + i.to_bytes(8, "big")
+            + j.to_bytes(8, "big"), digest_size=32).digest(), "big") % q
+            for j in range(d)]
+        m = [v * rinv % q for v in limbs[i * d:(i + 1) * d]]
+        for j in range(d):
+            for k in range(d):
+                if j + k < d:
+                    res[j + k] += key[j] * m[k]
+                else:
+                    res[j + k - d] -= key[j] * m[k]
+    return [v % q for v in res]
+
+
+@pytest.mark.parametrize("field", ["goldilocks", "bls12_377_fr"])
+def test_hash_32bit_limbs_match_bigint_product(field):
+    """Whole 32-bit words as limbs of a multi-word field, where the JAX
+    hash raises OverflowError (its limb mask): RSis(field, 3, 4, 32, 8)
+    against the negacyclic product in Python big ints."""
+    spec = tfs.get_field(field)
+    q = spec.modulus
+    vals = inputs(q, 8, 3)
+    ts = RSis(spec, 3, 4, 32, 8, device=CPU)
+    got = ts.eng.to_int(ts.hash(ts.eng.from_int(vals, mont=False,
+                                                device=CPU)), mont=False)
+    assert got == sis_bigint(spec, 3, 4, 32, vals)
+
+
+def test_bigint_sis_oracle_matches_jax():
+    """The big-int oracle itself against the JAX hash where that one runs
+    (16-bit limbs of goldilocks)."""
+    spec = tfs.GOLDILOCKS
+    vals = inputs(spec.modulus, 8, 3)
+    js = JRSis(jfs.GOLDILOCKS, 3, 4, 16, 8)
+    want = js.eng.to_int(js.hash(js.eng.from_int(vals, mont=False)),
+                         mont=False)
+    assert sis_bigint(spec, 3, 4, 16, vals) == want
 
 
 def test_hash_many_transversal_shape():

@@ -1,13 +1,15 @@
 """The port's straight-line VM (``gnark_crypto_tpu_torch/field/vm.py``)
 against the JAX package's (``gnark_crypto_tpu/field/pallas/vm.py``).
 
-* Program equality: the port's bn254 ``build_program`` at the reference's
-  tile of 256 is the reference's program row for row, with the same
-  registers, entry rows and outputs. This holds the towers, the symbolic
-  engines, the pairing formulas and the allocator at once.
+* Program equality: the port's bn254, bls12-381 and bls12-377
+  ``build_program`` at the reference's tile of 256 is the reference's
+  program row for row, with the same registers, entry rows and outputs.
+  This holds the towers, the symbolic engines, the pairing formulas and the
+  allocator at once.
 * Semantics: the plain executor against the Pallas kernel in interpret
   mode on a small program of every op, and against Python integers on a
-  random program and on the ``product`` program at the port's tile.
+  random program (at 8 and 12 words) and on the ``product`` program at the
+  port's tile.
 
 Values cross as canonical integers; the tolerance is 0 (the field is exact).
 """
@@ -38,9 +40,10 @@ def lane_values(n, seed):
 
 
 @pytest.mark.parametrize("variant", ["full", "miller", "product", "reduce"])
-def test_build_program_equals_reference(variant):
-    got = vm_pairing.build_program("bn254", variant, tile=256)
-    want = jvp.build_program("bn254", variant)
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
+def test_build_program_equals_reference(curve, variant):
+    got = vm_pairing.build_program(curve, variant, tile=256)
+    want = jvp.build_program(curve, variant)
     assert got.tile == want.tile == 256
     assert got.n_instrs == want.n_instrs
     assert np.array_equal(got.code, want.code)
@@ -82,6 +85,7 @@ def test_vm_all_ops_match_pallas_interpret():
 
 def run_ints(prog, inputs: dict, n_pad: int) -> dict:
     """Python-integer oracle: the program over plain values, lane by lane."""
+    Q = prog.spec.modulus
     inv2 = pow(2, -1, Q)
     regs = [None] * prog.n_regs
     for reg, val in prog.entry_consts:
@@ -117,6 +121,26 @@ def test_vm_random_program_matches_ints():
     want = run_ints(prog, ins, 64)
     for name, vals in want.items():
         assert mont.to_int(SPEC, out[name]) == vals[:n], name
+
+
+@pytest.mark.parametrize("name", ["bls12_381_fp", "bls12_377_fp"])
+def test_vm_random_program_matches_ints_12_words(name):
+    """The same at 12 words, the width of the bls12 pairing programs."""
+    spec = fs.get_field(name)
+    q = spec.modulus
+    prog = vm.random_program(spec, 600, seed=6)
+    assert all(v > 0 for v in prog.op_counts().values())
+    n = 40
+    rng = np.random.default_rng(11)
+    ins = {f"x{i}": ([0, 1, q - 1, 2, (q - 1) // 2] + [
+        int.from_bytes(rng.bytes(48), "big") % q for _ in range(n)])[:n]
+        for i in range(4)}
+    out = vm.execute(prog, {k: mont.from_int(spec, v, device="cpu")
+                            for k, v in ins.items()}, n)
+    assert out["y0"].shape == (n, 12)
+    want = run_ints(prog, ins, 64)
+    for name_, vals in want.items():
+        assert mont.to_int(spec, out[name_]) == vals[:n], name_
 
 
 def test_vm_product_program_matches_e12_products():
