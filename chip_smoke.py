@@ -25,13 +25,14 @@ the same card, bit for bit (the field is exact: the tolerance is 0):
   kernels): points [i+1]G2 for i < 2^16, tiled to 2^20, random canonical
   scalars, MSMs at 2^16 (c = 11) and 2^20 (c = 13), each against
   [sum s_i k_i mod r]G2 by one G2 scalar multiplication;
-* bn254 KZG at 2^20 (``protocols.kzg``): an SRS from a seeded alpha,
-  ``commit`` and ``open_poly`` of a random polynomial against
-  [p(alpha)]G1 and [q(alpha)]G1 from host integers, ``verify`` True and,
-  with the claimed value changed, False; ``batch_open_single_point`` of 4
-  polynomials and ``batch_verify_single_point``; and
-  ``batch_verify_multi_points`` over 4 proofs at 4 points, True and, with
-  one proof's H swapped, False;
+* bn254 KZG at 2^20 (``protocols.kzg``): an SRS from a seeded alpha
+  ([alpha]G2 against a Python-int Fp2 ladder), ``commit`` and
+  ``open_poly`` of a random polynomial against [p(alpha)]G1 and
+  [q(alpha)]G1 from host integers, ``verify`` True and, with the claimed
+  value changed, False; ``batch_open_single_point`` of 4 polynomials and
+  ``batch_verify_single_point``, True and, with two digests swapped,
+  False; and ``batch_verify_multi_points`` over 4 proofs at 4 points, True
+  and, with one proof's H swapped, False;
 * the small fields (``Domain``, ``fft``, ``fft_inverse`` over the f31 and
   f64 engines; ``hashes.sis.rsis``, ``RSis.hash``, ``RSis.hash_many``):
   the koalabear NTT at 2^20 (all four pairs, coset and not) and 2^24 (all
@@ -42,13 +43,14 @@ the same card, bit for bit (the field is exact: the tolerance is 0):
   ``RSis(koalabear, 42, 4, 8, 64).hash_many`` over 2048 columns of 64
   elements (Vortex's column hash, ``protocols/vortex.py:54-58``);
 * bls12-381 and bls12-377 (12-word Fp, the 12-word instantiations of the
-  field, exponent, G1 point and VM kernels): the G1 MSM as for bn254 at
-  2^12 (an EIP-4844 blob), 2^16 and 2^20 with ``batch_scalar_mul`` at
-  2^16, and the pairing as for bn254 at 2048 pairs, tampered, at batch 2
-  and against the golden bytes, with the Q_i from a pool of 16 points
-  [b_j]G2 made by an affine Fp2 ladder in Python integers (the G2 group law
-  has no 12-word kernel yet: a bls12 G2 ``scalar_mul`` on the card must
-  raise ``NotImplementedError``).
+  field, exponent, G1 point, Fp2 point and VM kernels; the Fp2 kernels at
+  u^2 = -1 for bls12-381 and -5 for bls12-377): the G1 MSM as for bn254
+  at 2^12 (an EIP-4844 blob), 2^16 and 2^20 with ``batch_scalar_mul`` at
+  2^16; the pairing as for bn254 at 2048 pairs, tampered, at batch 2 and
+  against the golden bytes, with Q_i = [b_i]G2 by the G2 ``scalar_mul``
+  on the card (sampled lanes and a few [k]G2 against a Python-int Fp2
+  ladder); the G2 MSM as for bn254 at 2^16 and 2^20; KZG as for bn254,
+  bls12-381 at 4096 (a blob) and bls12-377 at 2^20.
 
 Phases:
 
@@ -66,7 +68,7 @@ Phases:
    all six ops (for bls12 at 12 words, with ``mont_mul`` on the widest
    12-word product of the MSM path); the five Fp2 kernels on the inputs
    they received in a second 2^16 G2 MSM (the fold on its first 4
-   windows); the KZG results
+   windows), on each of the three curves; the KZG results
    against alpha-oracle points and their expected verdicts; the four
    small-field kernels (both forms of ``ntt_f31_stage``) on every distinct
    call of the small-field path, each small-field transform against its
@@ -110,7 +112,8 @@ SEED = 20261016
 # rows of their own, named with W12
 W12_KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double",
                "affine_prep", "affine_finish", "jac_fold_windows",
-               "vm_execute")
+               "vm_execute", "jac_add2", "jac_double2", "affine_prep2",
+               "affine_finish2", "jac_fold_windows2")
 W12 = "_w12"
 
 
@@ -618,7 +621,7 @@ class PairingSlice:
     """The bn254 pairing path: inputs, main path, checks and timings."""
 
     KERNELS = ("vm_execute", "mont_mul", "exp_const", "jac_add",
-               "jac_double")
+               "jac_double", "jac_add2", "jac_double2")
     NAME = "bn254"
     SUFFIX = ""    # kernel rows of the 8-word instantiations
     # gnark GT bytes of e(G1, G2) and e([5]G1, [7]G2), from the independent
@@ -697,8 +700,9 @@ class PairingSlice:
         # then the batch-2 KZG-verify shape and the golden pairs: one ladder
         # for every G1 input and one for every G2 input
         ka, kb = rng.randrange(1, self.r), rng.randrange(1, self.r)
+        self.b = b + [kb, 1, 1, 7]
         P_all = self.g1_mul(a + [ka, -ka * kb, 1, 5])
-        Q_all = self.g2_mul(b + [kb, 1, 1, 7])
+        Q_all = self.g2_mul(self.b)
         torch.cuda.synchronize()
         self.inputs_s = time.perf_counter() - t0
 
@@ -860,6 +864,13 @@ def fp2_oracle_add(P, Q, p: int, nr: int):
     return x3, sub(mul(lam, sub(x1, x3)), y1)
 
 
+def g2_affine_ints(g2, pt):
+    """Affine G2 points -> ((x.re, x.im), (y.re, y.im)) canonical ints per
+    point."""
+    xs, ys = (list(zip(*g2.fp.to_int(c))) for c in pt)
+    return list(zip(xs, ys))
+
+
 def fp2_oracle_mul(P, k: int, p: int, nr: int):
     acc = None
     while k:
@@ -872,64 +883,48 @@ def fp2_oracle_mul(P, k: int, p: int, nr: int):
 
 class Bls12PairingSlice(PairingSlice):
     """A bls12 pairing path (12-word Fp, the 12-word VM kernel): 2048 pairs
-    P_i = [a_i]G1 by batch_scalar_mul on the 12-word point kernels, Q_i
-    from a pool of 16 points [b_j]G2. The G2 group law has no 12-word
-    kernel yet, so the G2 inputs come from an affine ladder over Fp2 in
-    Python integers: inputs, not the path under test."""
+    P_i = [a_i]G1 by batch_scalar_mul on the 12-word point kernels and
+    Q_i = [b_i]G2 by the G2 scalar_mul on the 12-word Fp2 kernels, as
+    bn254's; sampled Q_i and a few [k]G2 are held against the Python-int
+    Fp2 ladder."""
 
     SUFFIX = W12
-    POOL = 16
-    G2_BY = "Python-int ladder"
 
     def __init__(self, dev, nprng, name: str, n: int = 2048):
         self.NAME = name
         super().__init__(dev, nprng, n)
         self.nr = self.g2.fp.nr
-        self.g2_cache = {}
-
-    def g2_scalars(self, rng, n: int) -> list[int]:
-        pool = [rng.randrange(1, self.r) for _ in range(self.POOL)]
-        return [pool[i % self.POOL] for i in range(n)]
-
-    def g2_mul(self, ks):
-        """[k]G2 by the Python-int Fp2 ladder (one per distinct k)."""
-        from gnark_crypto_tpu_torch.curve.jacobian import Affine
-
-        spec = self.g2.spec
-        p = spec.fp.modulus
-        g = (tuple(spec.gx), tuple(spec.gy))
-        for k in set(ks):
-            if k % self.r not in self.g2_cache:
-                self.g2_cache[k % self.r] = fp2_oracle_mul(
-                    g, k % self.r, p, self.nr)
-        pts = [self.g2_cache[k % self.r] for k in ks]
-        f = self.g2.fp
-        return Affine(f.from_int([q[0] for q in pts], device=self.dev),
-                      f.from_int([q[1] for q in pts], device=self.dev))
 
     def checks(self, compare, check):
         super().checks(compare, check)
-        # the G2 group law at 12 words is not ported to the card: it raises
-        g2 = self.g2
-        G = g2.generator_jac(device=self.dev)
-        try:
-            g2.scalar_mul(type(G)(*(c[None] for c in G)), g2.fr.from_int(
-                [3], mont=False, device=self.dev))
-            raised = False
-        except NotImplementedError:
-            raised = True
-        check(raised, f"{self.NAME} G2 scalar_mul on the card raises "
-              "NotImplementedError")
+        g2, name = self.g2, self.NAME
+        spec = g2.spec
+        g, p = (tuple(spec.gx), tuple(spec.gy)), spec.fp.modulus
+        lanes = [1, 2, self.n // 2, self.n - 2, self.n - 1]
+        got = g2_affine_ints(g2, type(self.Q)(*(c[lanes] for c in self.Q)))
+        check(got == [fp2_oracle_mul(g, self.b[i], p, self.nr)
+                      for i in lanes],
+              f"{name} G2 scalar_mul inputs at lanes {lanes} == Python-int "
+              "ladder")
+        ks = [1, 2, 3, self.r - 1, random.Random(SEED + 9).randrange(self.r)]
+        got = g2_affine_ints(g2, self.g2_mul(ks))
+        check(got == [fp2_oracle_mul(g, k, p, self.nr) for k in ks],
+              f"{name} G2 scalar_mul on the card, k = 1, 2, 3, r - 1 and a "
+              "random k, == Python-int ladder")
 
 
 class G2MsmSlice:
-    """The bn254 G2 MSM path: inputs, main path, checks and timings."""
+    """A G2 MSM path: inputs, main path, checks and timings. bn254 (8-word
+    Fp2, u^2 = -1), or a bls12 curve (12-word Fp2: bls12-381 u^2 = -1,
+    bls12-377 u^2 = -5), whose kernel rows are the 12-word instantiations
+    (``W12``)."""
 
     KERNELS = ("exp_const", "affine_prep2", "affine_finish2", "jac_add2",
                "jac_double2", "jac_fold_windows2")
     FOLD_WINDOWS = 4   # windows of the fold's plain-version check
 
-    def __init__(self, dev, nprng, base_log: int = 16, sizes=(16, 20)):
+    def __init__(self, dev, nprng, name: str = "bn254", base_log: int = 16,
+                 sizes=(16, 20)):
         import torch
 
         from gnark_crypto_tpu_torch.curve.g2 import g2_curve
@@ -938,17 +933,23 @@ class G2MsmSlice:
 
         self.torch, self.dev, self.nprng = torch, dev, nprng
         self.pp, self.pa2 = pippenger, point_add2
-        self.g2 = g2_curve("bn254", dev)
+        self.name = name
+        self.g2 = g2_curve(name, dev)
         self.r = self.g2.spec.fr.modulus
+        self.W = self.g2.spec.fp.n_words
+        self.nr = self.g2.fp.nr
+        self.suffix = "" if self.W == 8 else W12
+        self.tag = "" if self.W == 8 else f"{name} "
+        self.kernels = tuple(k + self.suffix for k in self.KERNELS)
         self.wrappers = {k: getattr(point_add2, k) for k in self.KERNELS[1:]}
         self.plain = {k: getattr(point_add2, f"{k}_plain")
                       for k in self.KERNELS[1:]}
         self.recorders = [Recorder(point_add2, "jac_fold_windows2",
-                                   keep_all=True)]
-        self.recorders += [Recorder(point_add2, k) for k in
+                                   keep_all=True, words=self.W)]
+        self.recorders += [Recorder(point_add2, k, words=self.W) for k in
                            ("jac_add2", "affine_prep2", "affine_finish2")]
         self.rec = {r.name: r for r in self.recorders}
-        self.results, self.wall, self.peak = {}, {}, {}
+        self.results, self.wall, self.peak, self.base = {}, {}, {}, {}
         self.base_log, self.sizes = base_log, sizes
 
     def tiled(self, k: int):
@@ -989,6 +990,8 @@ class G2MsmSlice:
             pts = self.tiled(k)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            # the earlier paths' live tensors, under the peak
+            self.base[k] = torch.cuda.memory_allocated()
             t1 = time.perf_counter()
             self.results[k] = pp.msm(g2, pts, self.scalars[:1 << k])
             torch.cuda.synchronize()
@@ -996,6 +999,9 @@ class G2MsmSlice:
             self.peak[k] = torch.cuda.max_memory_allocated()
             del pts
         self.rec["jac_fold_windows2"].on = False
+        # out of the way of the other paths; checks() installs them again
+        for r in self.recorders:
+            r.remove()
         return time.perf_counter() - t0
 
     # -- phase 2 -------------------------------------------------------------
@@ -1006,60 +1012,73 @@ class G2MsmSlice:
 
         g2 = self.g2
         flat = [c.reshape(-1, *c.shape[-2:]) for c in pt]
-        aff = flat if len(flat) == 2 else g2.to_affine(Jac(*flat))
-        xs, ys = (list(zip(*g2.fp.to_int(c))) for c in aff)
-        return list(zip(xs, ys))
+        return g2_affine_ints(g2, flat if len(flat) == 2
+                              else g2.to_affine(Jac(*flat)))
 
     def checks(self, compare, check):
         """Every MSM against [sum s_i k_i]G2, sampled bases against the
-        ladder, then each kernel against its plain version on the inputs
-        of a second 2^sizes[0] MSM."""
-        torch, pp = self.torch, self.pp
+        Python-int Fp2 ladder, then each kernel against its plain version
+        on the inputs of a second 2^sizes[0] MSM."""
+        torch, pp, name = self.torch, self.pp, self.name
         nb = 1 << self.base_log
         lanes = [0, 1, nb - 1]
         got = self.affine_ints(type(self.p16)(*(c[lanes] for c in self.p16)))
-        want = [self.affine_ints(self.g2_mul(i + 1))[0] for i in lanes]
-        check(got == want,
-              f"G2 batch_scalar_mul bases [i+1]G2 at lanes {lanes}")
+        spec = self.g2.spec
+        g, p = (tuple(spec.gx), tuple(spec.gy)), spec.fp.modulus
+        check(got == [fp2_oracle_mul(g, i + 1, p, self.nr) for i in lanes],
+              f"{name} G2 batch_scalar_mul bases [i+1]G2 at lanes {lanes} "
+              "== Python-int ladder")
         for k in self.sizes:
             total = weighted_total(self.scalars[:1 << k], nb, self.r)
             check(self.affine_ints(self.results[k])
                   == self.affine_ints(self.g2_mul(total)),
-                  f"msm bn254 G2 2^{k} == [sum s_i k_i]G2 (identity)")
-        for name in ("jac_add2", "affine_prep2", "affine_finish2"):
-            self.rec[name].on = True
+                  f"msm {name} G2 2^{k} == [sum s_i k_i]G2 (identity)")
+        for r_ in self.recorders:
+            r_.install()
+        for k in ("jac_add2", "affine_prep2", "affine_finish2"):
+            self.rec[k].on = True
         k0 = self.sizes[0]
         again = pp.msm(self.g2, self.tiled(k0), self.scalars[:1 << k0])
         for r_ in self.recorders:
             r_.on = False
             r_.remove()
         check(all(torch.equal(u, v) for u, v in zip(again, self.results[k0])),
-              f"msm G2 2^{k0} run twice: the same Jacobian coordinates")
-        self.kargs = {name: self.rec[name].args for name in
+              f"msm {name} G2 2^{k0} run twice: the same Jacobian "
+              "coordinates")
+        self.kargs = {k: self.rec[k].args for k in
                       ("jac_add2", "affine_prep2", "affine_finish2")}
         # the bases' ladder doubles every lane of 2^base_log
-        self.kargs["jac_double2"] = (self.g2.spec.fp, self.g2.fp.nr,
+        self.kargs["jac_double2"] = (spec.fp, self.nr,
                                      *self.g2.from_affine(self.p16))
         folds = self.rec["jac_fold_windows2"].calls
         # one fold per MSM: sizes in order
         self.fold_args = {f"2^{k}": folds[i] for i, k in enumerate(self.sizes)}
-        spec, nr, x, y, z, c = folds[0]
+        fspec, nr, x, y, z, c = folds[0]
         w = self.FOLD_WINDOWS
-        self.kargs["jac_fold_windows2"] = (spec, nr, x[:w].contiguous(),
+        self.kargs["jac_fold_windows2"] = (fspec, nr, x[:w].contiguous(),
                                            y[:w].contiguous(),
                                            z[:w].contiguous(), c)
-        for name, args in self.kargs.items():
-            for i, (o, w_) in enumerate(zip(self.wrappers[name](*args),
-                                            self.plain[name](*args))):
-                compare(name, o, w_, f"G2 {width(args)} lanes, output {i}")
+        # the plain versions' times from these runs (host clock,
+        # synchronised): the 12-word plain fold costs seconds
+        self.plain_ms = {}
+        for k, args in self.kargs.items():
+            outs = self.wrappers[k](*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wants = self.plain[k](*args)
+            torch.cuda.synchronize()
+            self.plain_ms[k] = (time.perf_counter() - t0) * 1e3
+            for i, (o, w_) in enumerate(zip(outs, wants)):
+                compare(k + self.suffix, o, w_,
+                        f"{self.tag}G2 {width(args)} lanes, output {i}")
 
     # -- phase 3 -------------------------------------------------------------
     def bounds(self):
         """(bytes, multiply-adds) of each kernel's recorded call on its data:
-        an Fp2 element is 64 bytes, an Fp2 product 3 base products."""
+        an Fp2 element is 8W bytes, an Fp2 product 3 base products."""
         torch, pa2 = self.torch, self.pa2
-        mm2 = 3 * MADS_PER_MONT_MUL
-        E2 = 2 * ELEM_BYTES
+        mm2 = 3 * mads_per_product(self.W)
+        E2 = 8 * self.W
         out = {}
         spec, nr, *pts = self.kargs["affine_prep2"]
         n = pts[0].shape[0]
@@ -1092,13 +1111,14 @@ class G2MsmSlice:
             self.fold_serial[tag] = serial
             key = ("jac_fold_windows2" if tag == "check"
                    else f"jac_fold_windows2 {tag}")
-            out[key] = ((3 * nwin + 3) * E2, MADS_PER_MONT_MUL * serial)
+            out[key] = ((3 * nwin + 3) * E2,
+                        mads_per_product(self.W) * serial)
         return out
 
     def timings(self, cuda_ms, timings, kernel_rows):
-        torch, pp = self.torch, self.pp
-        for name, (nbytes, mads) in self.bounds().items():
-            kname, _, tag = name.partition(" ")
+        torch, pp, name = self.torch, self.pp, self.name
+        for key, (nbytes, mads) in self.bounds().items():
+            kname, _, tag = key.partition(" ")
             args = self.fold_args[tag] if tag else self.kargs[kname]
             b_ms, b_by = bound(nbytes, mads)
             row = {"ms": cuda_ms(lambda: self.wrappers[kname](*args),
@@ -1108,10 +1128,9 @@ class G2MsmSlice:
                 row["serial_products"] = self.fold_serial[tag or "check"]
                 row["windows"], row["c"] = args[2].shape[0], args[5]
             if not tag:
-                row["plain_ms"] = cuda_ms(
-                    lambda: self.plain[kname](*args), reps=1, rounds=1)
-                kernel_rows[kname] = row
-            timings[f"{name} G2 {width(args)} lanes"] = row
+                row["plain_ms"] = self.plain_ms[kname]
+                kernel_rows[kname + self.suffix] = row
+            timings[f"{self.tag}{key} G2 {width(args)} lanes"] = row
         for k in self.sizes:
             pts = self.tiled(k)
             torch.cuda.synchronize()
@@ -1119,39 +1138,47 @@ class G2MsmSlice:
             pp.msm(self.g2, pts, self.scalars[:1 << k])
             torch.cuda.synchronize()
             warm = time.perf_counter() - t0
-            timings[f"msm bn254 G2 2^{k}"] = {
+            timings[f"msm {name} G2 2^{k}"] = {
                 "s": warm, "points_per_s": (1 << k) / warm,
-                "s_main_path": self.wall[k], "peak_bytes": self.peak[k]}
+                "s_main_path": self.wall[k], "peak_bytes": self.peak[k],
+                "peak_over_live_bytes": self.peak[k] - self.base[k]}
             del pts
-        timings[f"G2 bases (batch_scalar_mul, 2^{self.base_log} lanes)"] = {
-            "s": self.bases_s}
+        timings[f"{self.tag}G2 bases (batch_scalar_mul, 2^{self.base_log} "
+                "lanes)"] = {"s": self.bases_s}
         k = self.sizes[-1]
-        timings[f"msm G2 2^{k} steps"] = msm_steps(
+        timings[f"{self.tag}msm G2 2^{k} steps"] = msm_steps(
             pp, lambda: pp.msm(self.g2, self.tiled(k), self.scalars[:1 << k]))
 
 
 class KzgSlice:
-    """bn254 KZG end to end: SRS, commit, open, verify and the batch forms,
-    held against alpha-oracle points and tampered inputs."""
+    """KZG end to end on one curve: SRS, commit, open, verify and the batch
+    forms, held against alpha-oracle points and tampered inputs. bn254, or a
+    bls12 curve, whose G1 and G2 kernels are the 12-word instantiations
+    (``W12``) and whose Fr products stay at 8 words."""
 
-    KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double",
-               "affine_prep", "affine_finish", "jac_fold_windows",
-               "vm_execute", "jac_add2", "jac_double2")
-    NAME = "bn254"
+    KERNELS = ("exp_const", "jac_add", "jac_double", "affine_prep",
+               "affine_finish", "jac_fold_windows", "vm_execute", "jac_add2",
+               "jac_double2")
     K = 4   # polynomials of the batch forms
 
-    def __init__(self, dev, nprng, log_n: int = 20):
+    def __init__(self, dev, nprng, name: str = "bn254", log_n: int = 20):
         import torch
 
+        from gnark_crypto_tpu_torch.curve.g2 import g2_curve
         from gnark_crypto_tpu_torch.curve.jacobian import curve_ops
         from gnark_crypto_tpu_torch.protocols import kzg
         from gnark_crypto_tpu_torch.specs import curve as cs
 
         self.torch, self.dev, self.nprng, self.kzg = torch, dev, nprng, kzg
-        self.g1 = curve_ops(cs.get_curve(f"{self.NAME}_g1"))
+        self.NAME = name
+        self.g1 = curve_ops(cs.get_curve(f"{name}_g1"))
+        self.g2 = g2_curve(name, dev)
         self.r = self.g1.spec.fr.modulus
         self.n = 1 << log_n
         self.wall = {}
+        suffix = "" if self.g1.spec.fp.n_words == 8 else W12
+        # Fr (8 words on every curve here) through mont_mul
+        self.kernels = ("mont_mul",) + tuple(k + suffix for k in self.KERNELS)
 
     def timed(self, label, fn):
         self.torch.cuda.synchronize()
@@ -1200,6 +1227,10 @@ class KzgSlice:
                               kzg.batch_verify_single_point(
                                   name, self.digests, self.bproof, a0,
                                   srs.vk))
+        swapped = [self.digests[1], self.digests[0], *self.digests[2:]]
+        self.bbad = self.timed("batch_verify_single_point", lambda:
+                               kzg.batch_verify_single_point(
+                                   name, swapped, self.bproof, a0, srs.vk))
         self.proofs = [self.proof] + [kzg.open_poly(
             name, srs.pk, self.polys[i], self.fr([self.a[i]]))
             for i in range(1, K)]
@@ -1246,32 +1277,44 @@ class KzgSlice:
             p_a = (p_a * self.a[0] + c) % r
         lanes = [0, 1, 2, self.n - 1]
         pk = self.srs.pk.g1
+        name = f"{self.NAME} 2^{self.n.bit_length() - 1}"
         check(self.g1_ints(type(pk)(*(c[lanes] for c in pk)))
               == self.g1_ints(self.g1_mul([pow(alpha, i, r) for i in lanes])),
-              f"SRS [alpha^i]G1 at lanes {lanes}")
+              f"kzg {name}: SRS [alpha^i]G1 at lanes {lanes}")
+        spec2 = self.g2.spec
+        check(g2_affine_ints(self.g2, self.srs.vk.alpha_g2)
+              == [fp2_oracle_mul((tuple(spec2.gx), tuple(spec2.gy)), alpha,
+                                 spec2.fp.modulus, self.g2.fp.nr)],
+              f"kzg {name}: SRS [alpha]G2 == Python-int Fp2 ladder")
         check(self.g1_ints(self.C) == self.g1_ints(self.g1_mul([p_alpha])),
-              f"commit 2^{self.n.bit_length() - 1} == [p(alpha)]G1")
+              f"kzg {name}: commit == [p(alpha)]G1")
         check(mont.to_int(self.g1.spec.fr, self.proof.claimed_value,
                           mont=False) == [p_a],
-              "open_poly claimed value == p(a) on host integers")
+              f"kzg {name}: open_poly claimed value == p(a) on host "
+              "integers")
         q_alpha = (p_alpha - p_a) * pow(alpha - self.a[0], -1, r) % r
         check(self.g1_ints(self.proof.h) == self.g1_ints(self.g1_mul(
-            [q_alpha])), "open_poly H == [(p(alpha) - p(a)) / (alpha - a)]G1")
-        check(self.ok is True, "verify: True on the honest opening")
-        check(self.bad is False, "verify: False with the claimed value + 1")
-        check(self.bok is True, f"batch_verify_single_point over {self.K} "
-              "polynomials: True")
-        check(self.mok is True, f"batch_verify_multi_points over {self.K} "
-              "proofs at distinct points: True")
-        check(self.mbad is False, "batch_verify_multi_points with one "
-              "proof's H swapped: False")
+            [q_alpha])), f"kzg {name}: open_poly H == [(p(alpha) - p(a)) / "
+              "(alpha - a)]G1")
+        check(self.ok is True, f"kzg {name}: verify True on the honest "
+              "opening")
+        check(self.bad is False, f"kzg {name}: verify False with the "
+              "claimed value + 1")
+        check(self.bok is True, f"kzg {name}: batch_verify_single_point "
+              f"over {self.K} polynomials True")
+        check(self.bbad is False, f"kzg {name}: batch_verify_single_point "
+              "with two digests swapped False")
+        check(self.mok is True, f"kzg {name}: batch_verify_multi_points "
+              f"over {self.K} proofs at distinct points True")
+        check(self.mbad is False, f"kzg {name}: batch_verify_multi_points "
+              "with one proof's H swapped False")
 
     # -- phase 3 -------------------------------------------------------------
     def timings(self, cuda_ms, timings, kernel_rows):
         import numpy as np
 
         for label, per in self.wall.items():
-            timings[f"kzg bn254 2^{self.n.bit_length() - 1} {label}"] = {
+            timings[f"kzg {self.NAME} 2^{self.n.bit_length() - 1} {label}"] = {
                 "s": float(np.median(per)), "runs": per}
 
 
@@ -1620,6 +1663,12 @@ def main() -> int:
                         name=f"{c}_g1") for c in ("bls12_381", "bls12_377")]
     bls_pair = [Bls12PairingSlice(dev, bls_rng, c)
                 for c in ("bls12_381", "bls12_377")]
+    # their G2 MSMs on the 12-word Fp2 kernels (u^2 = -1 and -5) at 2^16
+    # and 2^20, and KZG: bls12-381 at 4096 (an EIP-4844 blob), bls12-377 at
+    # 2^20
+    bls_g2 = [G2MsmSlice(dev, bls_rng, c) for c in ("bls12_381", "bls12_377")]
+    bls_kzg = [KzgSlice(dev, bls_rng, "bls12_381", log_n=12),
+               KzgSlice(dev, bls_rng, "bls12_377", log_n=20)]
     ntt_kernels = ("mont_mul", "ntt_radix2_stage", "ntt_radix2_block",
                    "ntt_four_step")
     wrappers = {"mont_mul": kernels.mont_mul,
@@ -1695,13 +1744,17 @@ def main() -> int:
     ntt_counts = drive("NTT", ntt_path, ntt_kernels)
     msm_counts = drive("MSM", msm.main_path, msm.KERNELS)
     pair_counts = drive("pairing", pairing.main_path, pairing.KERNELS)
-    g2_counts = drive("G2 MSM", g2msm.main_path, g2msm.KERNELS)
-    kzg_counts = drive("KZG", kzg.main_path, kzg.KERNELS)
+    g2_counts = drive("G2 MSM", g2msm.main_path, g2msm.kernels)
+    kzg_counts = drive("KZG", kzg.main_path, kzg.kernels)
     small_counts = drive("small fields", small.main_path, small.KERNELS)
     bls_counts = [drive(f"{sl.spec.name} MSM", sl.main_path, sl.kernels)
                   for sl in bls_msm]
     bls_counts += [drive(f"{sl.NAME} pairing", sl.main_path, sl.kernels)
                    for sl in bls_pair]
+    bls_counts += [drive(f"{sl.name} G2 MSM", sl.main_path, sl.kernels)
+                   for sl in bls_g2]
+    bls_counts += [drive(f"{sl.NAME} KZG", sl.main_path, sl.kernels)
+                   for sl in bls_kzg]
     path_counts = (ntt_counts, msm_counts, pair_counts, g2_counts,
                    kzg_counts, small_counts, *bls_counts)
     row_names = list(wrappers) + [k + W12 for k in W12_KERNELS]
@@ -1818,7 +1871,7 @@ def main() -> int:
     g2msm.checks(compare, check)
     kzg.checks(compare, check)
     small.checks(compare, check)
-    for sl in (*bls_msm, *bls_pair):
+    for sl in (*bls_msm, *bls_pair, *bls_g2, *bls_kzg):
         sl.checks(compare, check)
 
     # ---------------------------------------------------------------- phase 3
@@ -1917,7 +1970,9 @@ def main() -> int:
     # the kernels line takes each 12-word row from bls12-381; bls12-377's
     # rows are in the timings line
     for sl, into in ((bls_msm[0], kernel_rows), (bls_msm[1], {}),
-                     (bls_pair[0], kernel_rows), (bls_pair[1], {})):
+                     (bls_pair[0], kernel_rows), (bls_pair[1], {}),
+                     (bls_g2[0], kernel_rows), (bls_g2[1], {}),
+                     (bls_kzg[0], {}), (bls_kzg[1], {})):
         sl.timings(cuda_ms, timings, into)
 
     kernel_line = []

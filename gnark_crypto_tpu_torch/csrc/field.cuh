@@ -9,7 +9,7 @@
 // 32x32->64 multiply-adds per product (W^2 for a*b, W^2 for m*q, W for m):
 // 136 at W = 8, 300 at W = 12.
 //
-// Kernels built at 8 words only (the NTT, Fp2) use the names at the end:
+// Kernels built at 8 words only (the NTT) use the names at the end:
 // W, Elem, FieldConst, field_const and load_elem without a width.
 #pragma once
 

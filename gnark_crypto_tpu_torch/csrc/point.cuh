@@ -1,9 +1,9 @@
 // Short-Weierstrass point arithmetic on W-word Montgomery elements (W = 8
 // and 12): the device cores of csrc/point_add.cu and csrc/affine_level.cu,
-// and over Fp2 (csrc/fp2.cuh, 8 words) of csrc/point_add2.cu and
+// and over Fp2 (csrc/fp2.cuh, 8 and 12 words) of csrc/point_add2.cu and
 // csrc/affine_level2.cu. Each core is a template over the element type E
-// (ElemT<W> or Elem2) and its field constants FC, and calls the field ops by
-// overload, as the JAX package's cores take an ops tuple.
+// (ElemT<W> or Elem2T<W, NR>) and its field constants FC, and calls the
+// field ops by overload, as the JAX package's cores take an ops tuple.
 //
 // Counterparts of the Pallas cores in gnark_crypto_tpu/field/pallas/
 // point_add.py (`_dbl_core`, `_add_core_ops`, `_prep_kernel`,

@@ -13,10 +13,11 @@ order, with the BASE field spec and the non-residue ``nr`` (u^2 = nr):
 * :func:`jac_fold_windows2`: the Horner fold of the per-window totals.
 
 A CUDA tensor goes to ``csrc/point_add2.cu`` or ``csrc/affine_level2.cu``
-(the cores of ``csrc/point.cuh`` over ``csrc/fp2.cuh``), which take bn254's
-Fp2: 8-word q < 2^255 and nr = -1; any other field raises on the card. A
-CPU tensor goes to the ``*_plain`` version here, which takes every word
-count and every nr in [-16, 16] (bls12-377's is -5). The plain versions run
+(the cores of ``csrc/point.cuh`` over ``csrc/fp2.cuh``), built for the
+(words, nr) pairs of :data:`PAIRS`: bn254's Fp2 (8 words, u^2 = -1),
+bls12-381's (12, -1) and bls12-377's (12, -5); any other pair raises on the
+card before any launch. A CPU tensor goes to the ``*_plain`` version here,
+which takes every word count and every nr in [-16, 16]. The plain versions run
 the cores of ``field/point_add.py`` over Fp2 ops built from
 :func:`mont_mul_plain` and the plain ``mont.add``/``mont.sub``, so on the
 card they launch no kernel; both versions follow the JAX formulas in the
@@ -30,7 +31,7 @@ import ctypes
 import torch
 
 from gnark_crypto_tpu_torch.field import mont
-from gnark_crypto_tpu_torch.field.kernels import check_width
+from gnark_crypto_tpu_torch.field.kernels import check_width, count_launch
 from gnark_crypto_tpu_torch.field.point_add import (
     _P, _N, _I, Coords, _check_bits, _dbl_core, _add_core, _finish_core,
     _fold_core, _Ops, _prep_core, _ptrs)
@@ -38,8 +39,10 @@ from gnark_crypto_tpu_torch.specs.field import FieldSpec
 from gnark_crypto_tpu_torch.utils import build
 
 
-# the widths the Fp2 kernels are built for (csrc/fp2.cuh)
-WIDTHS = (8,)
+# the (base field words, nr) pairs the Fp2 kernels are built for
+# (csrc/fp2.cuh gct::for_fp2), and their widths
+PAIRS = ((8, -1), (12, -1), (12, -5))
+WIDTHS = tuple(sorted({w for w, _ in PAIRS}))
 
 
 class _Ops2(_Ops):
@@ -116,15 +119,15 @@ def jac_fold_windows2_plain(spec: FieldSpec, nr: int, x, y, z, c: int
 
 def _check(spec: FieldSpec, nr: int, what: str, *coords: torch.Tensor
            ) -> int:
-    """bn254's Fp2 and int32 (N, 2, 8) coordinates, as the kernels take.
-
-    ``csrc/fp2.cuh`` is built at 8 words only, so bls12 G2 (12-word Fp)
-    raises here before any launch."""
+    """An Fp2 of :data:`PAIRS` and int32 (N, 2, W) coordinates, as the
+    kernels take; any other (W, nr) pair raises here, before any launch."""
     check_width(spec, what, WIDTHS)
-    if nr != -1:
+    if (spec.n_words, nr) not in PAIRS:
         raise NotImplementedError(
-            f"{what}: the CUDA kernels take Fp2 with u^2 = -1 (bn254); "
-            f"nr = {nr} is not ported to them yet")
+            f"{what}: the CUDA kernels take Fp2 over {spec.n_words}-word "
+            f"fields with u^2 = "
+            f"{' or '.join(str(r) for w, r in PAIRS if w == spec.n_words)}"
+            f"; nr = {nr} is not built")
     n = coords[0].shape[0]
     for t in coords:
         if (t.dtype != torch.int32 or tuple(t.shape) != (n, 2, spec.n_words)
@@ -138,7 +141,14 @@ def _check(spec: FieldSpec, nr: int, what: str, *coords: torch.Tensor
 
 
 def _one_words(spec: FieldSpec) -> ctypes.Array:
+    """Montgomery one of the base field, W words."""
     return (ctypes.c_uint32 * spec.n_words)(*spec.one_words)
+
+
+def _field_args(spec: FieldSpec, nr: int) -> tuple:
+    """Every entry's arguments after its tensors and counts: n_words, nr,
+    and the field words (q, then -q^-1 mod 2^32)."""
+    return spec.n_words, nr, build.field_words(spec)
 
 
 def jac_add2(spec: FieldSpec, nr: int, x1, y1, z1, x2, y2, z2) -> Coords:
@@ -148,10 +158,10 @@ def jac_add2(spec: FieldSpec, nr: int, x1, y1, z1, x2, y2, z2) -> Coords:
     n = _check(spec, nr, "jac_add2", x1, y1, z1, x2, y2, z2)
     out = tuple(torch.empty_like(x1) for _ in range(3))
     fn = build.function("point_add2", "gct_jac_add2",
-                        [_P] * 9 + [_N, _P, _P])
-    jac_add2.launches += 1
+                        [_P] * 9 + [_N, _I, _I, _P, _P])
+    count_launch(jac_add2, spec)
     build.check(fn(*_ptrs(x1, y1, z1, x2, y2, z2, *out), n,
-                   build.field_words(spec), build.stream_ptr(x1)),
+                   *_field_args(spec, nr), build.stream_ptr(x1)),
                 "jac_add2 launch")
     return out
 
@@ -163,9 +173,9 @@ def jac_double2(spec: FieldSpec, nr: int, x1, y1, z1) -> Coords:
     n = _check(spec, nr, "jac_double2", x1, y1, z1)
     out = tuple(torch.empty_like(x1) for _ in range(3))
     fn = build.function("point_add2", "gct_jac_double2",
-                        [_P] * 6 + [_N, _P, _P])
-    jac_double2.launches += 1
-    build.check(fn(*_ptrs(x1, y1, z1, *out), n, build.field_words(spec),
+                        [_P] * 6 + [_N, _I, _I, _P, _P])
+    count_launch(jac_double2, spec)
+    build.check(fn(*_ptrs(x1, y1, z1, *out), n, *_field_args(spec, nr),
                    build.stream_ptr(x1)), "jac_double2 launch")
     return out
 
@@ -179,10 +189,10 @@ def affine_prep2(spec: FieldSpec, nr: int, px, py, qx, qy):
     den, num = torch.empty_like(px), torch.empty_like(px)
     bits = torch.empty((n,), dtype=torch.int32, device=px.device)
     fn = build.function("affine_level2", "gct_affine_prep2",
-                        [_P] * 7 + [_N, _P, _P, _P])
-    affine_prep2.launches += 1
+                        [_P] * 7 + [_N, _I, _I, _P, _P, _P])
+    count_launch(affine_prep2, spec)
     build.check(fn(*_ptrs(px, py, qx, qy, den, num, bits), n,
-                   build.field_words(spec), _one_words(spec),
+                   *_field_args(spec, nr), _one_words(spec),
                    build.stream_ptr(px)), "affine_prep2 launch")
     return den, num, bits
 
@@ -199,11 +209,11 @@ def affine_finish2(spec: FieldSpec, nr: int, lpx, lpy, lsx, lsy, rpx, rpy,
     _check_bits("affine_finish2", n, maskbits, treebits)
     out = tuple(torch.empty_like(lpx) for _ in range(7))
     fn = build.function("affine_level2", "gct_affine_finish2",
-                        [_P] * 4 + [_N, _P, _P, _P])
-    affine_finish2.launches += 1
+                        [_P] * 4 + [_N, _I, _I, _P, _P, _P])
+    count_launch(affine_finish2, spec)
     build.check(fn((_P * 10)(*_ptrs(*ins)), maskbits.data_ptr(),
                    treebits.data_ptr(), (_P * 7)(*_ptrs(*out)), n,
-                   build.field_words(spec), _one_words(spec),
+                   *_field_args(spec, nr), _one_words(spec),
                    build.stream_ptr(lpx)), "affine_finish2 launch")
     return out
 
@@ -219,9 +229,9 @@ def jac_fold_windows2(spec: FieldSpec, nr: int, x, y, z, c: int) -> Coords:
     out = tuple(torch.empty((1, 2, spec.n_words), dtype=torch.int32,
                             device=x.device) for _ in range(3))
     fn = build.function("point_add2", "gct_jac_fold_windows2",
-                        [_P] * 6 + [_I, _I, _P, _P])
-    jac_fold_windows2.launches += 1
-    build.check(fn(*_ptrs(x, y, z, *out), nwin, c, build.field_words(spec),
+                        [_P] * 6 + [_I, _I, _I, _I, _P, _P])
+    count_launch(jac_fold_windows2, spec)
+    build.check(fn(*_ptrs(x, y, z, *out), nwin, c, *_field_args(spec, nr),
                    build.stream_ptr(x)), "jac_fold_windows2 launch")
     return out
 
@@ -229,4 +239,5 @@ def jac_fold_windows2(spec: FieldSpec, nr: int, x, y, z, c: int) -> Coords:
 for _w in (jac_add2, jac_double2, affine_prep2, affine_finish2,
            jac_fold_windows2):
     _w.launches = 0
+    _w.launches_by_width = {}
 del _w

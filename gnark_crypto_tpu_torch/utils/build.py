@@ -23,8 +23,11 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
+# --split-compile=0: one source's device code is optimised and assembled
+# on every core (the 12-word Fp2 point kernels take minutes on one)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -2,13 +2,16 @@
 
 * Which kernels take which fields: the width check of every CUDA wrapper
   (``field/kernels.py`` ``check_width``), called directly since it needs
-  no card: the field, exponent, point and VM kernels are built at 8 and
-  12 words, the NTT and Fp2 kernels at 8 only, and no kernel takes 10, 20
-  or 24 words or an 8-word q >= 2^255 (secp256k1/r1).
+  no card: the field, exponent, point, Fp2 point and VM kernels are built
+  at 8 and 12 words, the NTT kernels at 8 only, and no kernel takes 10, 20
+  or 24 words or an 8-word q >= 2^255 (secp256k1/r1). The Fp2 kernels take
+  only the (words, nr) pairs they were built for: (8, -1), (12, -1) and
+  (12, -5).
 * What the 12-word kernels receive from the host, against Python integers:
   the field words and -q^-1 mod 2^32, Montgomery one, the exponent words of
-  q - 2 (and of an exponent past 2^384), the curve words, and the VM's
-  entry constants. A fault there would only show on the card.
+  q - 2 (and of an exponent past 2^384), the curve words, the Fp2 kernels'
+  words and non-residues, and the VM's entry constants. A fault there
+  would only show on the card.
 * The G1 paths the 12-word point kernels carry on the card, here on their
   plain versions: ``msm`` at 2^6 points and ``batch_scalar_mul`` lanes
   against the JAX package and a Python-int oracle, on the same seeded
@@ -88,7 +91,8 @@ WRAPPER_WIDTHS = {
 
 def test_wrapper_widths():
     assert kernels.FIELD_WIDTHS == (8, 12)
-    assert radix2.WIDTHS == (8,) and point_add2.WIDTHS == (8,)
+    assert radix2.WIDTHS == (8,) and point_add2.WIDTHS == (8, 12)
+    assert point_add2.PAIRS == ((8, -1), (12, -1), (12, -5))
 
 
 @pytest.mark.parametrize("name,words", ADMITTED_BY_FIELD_KERNELS)
@@ -96,13 +100,12 @@ def test_width_check_admits(name, words):
     spec = tfs.get_field(name)
     assert spec.n_words == words
     kernels.check_width(spec, "mont_mul", kernels.FIELD_WIDTHS)
+    kernels.check_width(spec, "jac_add2", point_add2.WIDTHS)
     if words == 8:
         kernels.check_width(spec, "ntt_radix2 stage", radix2.WIDTHS)
-        kernels.check_width(spec, "jac_add2", point_add2.WIDTHS)
-    else:  # 12-word fields never reach an 8-word NTT or Fp2 kernel
-        for widths in (radix2.WIDTHS, point_add2.WIDTHS):
-            with pytest.raises(NotImplementedError):
-                kernels.check_width(spec, "8-word kernel", widths)
+    else:  # 12-word fields never reach an 8-word NTT kernel
+        with pytest.raises(NotImplementedError):
+            kernels.check_width(spec, "8-word kernel", radix2.WIDTHS)
 
 
 @pytest.mark.parametrize("name,words", REFUSED_EVERYWHERE)
@@ -112,6 +115,43 @@ def test_width_check_refuses(name, words):
     for what, widths in WRAPPER_WIDTHS.items():
         with pytest.raises(NotImplementedError):
             kernels.check_width(spec, what, widths)
+
+
+# (field, nr): the Fp2 pairs the kernels admit, and pairs they refuse
+FP2_ADMITTED = [("bn254_fp", -1), ("bls12_381_fp", -1), ("bls12_377_fp", -5),
+                ("bls12_377_fp", -1), ("bls12_381_fp", -5)]
+FP2_REFUSED = [("bn254_fp", -5), ("bn254_fp", 3), ("bls12_381_fp", -7),
+               ("bls12_377_fp", 5), ("bls24_315_fp", -1),
+               ("bw6_761_fp", -1), ("secp256k1_fp", -1)]
+
+
+def fp2_coords(spec, n=3):
+    return [torch.zeros((n, 2, spec.n_words), dtype=torch.int32)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("name,nr", FP2_ADMITTED)
+def test_fp2_check_admits_built_pairs(name, nr):
+    spec = tfs.get_field(name)
+    assert point_add2._check(spec, nr, "jac_double2",
+                             *fp2_coords(spec)) == 3
+
+
+@pytest.mark.parametrize("name,nr", FP2_REFUSED)
+def test_fp2_check_refuses_other_pairs(name, nr):
+    """Refused before any launch: the check runs before the build."""
+    spec = tfs.get_field(name)
+    with pytest.raises(NotImplementedError):
+        point_add2._check(spec, nr, "jac_double2", *fp2_coords(spec))
+
+
+def test_fp2_check_refuses_bad_tensors():
+    spec = tfs.get_field("bls12_381_fp")
+    x, y, z = fp2_coords(spec, 4)
+    for bad in (x[:, :, :8].contiguous(), x.to(torch.int64), x[::2],
+                x.transpose(0, 1)):
+        with pytest.raises(ValueError):
+            point_add2._check(spec, -1, "jac_double2", bad, y, z)
 
 
 # -- what the 12-word kernels receive ----------------------------------------
@@ -137,6 +177,29 @@ def test_launch_args_at_12_words(name):
     cw, a_is_zero = point_add._curve_args(spec, 3)
     assert words_int(list(cw)[:W]) == 3 * (1 << (32 * W)) % q
     assert a_is_zero == 0
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_fp2_launch_args_at_12_words(name):
+    """The arguments every Fp2 entry takes after its tensors (n_words, nr,
+    q's words and -q^-1 mod 2^32) and the tree level's Montgomery one,
+    against Python ints, with the non-residue of the curve's G2 tower."""
+    from gnark_crypto_tpu_torch.curve.g2 import g2_curve
+
+    g2 = g2_curve(name, CPU)
+    spec, nr = g2.spec.fp, g2.fp.nr
+    assert nr == {"bls12_381": -1, "bls12_377": -5}[name]
+    q, W = spec.modulus, 12
+    n_words, got_nr, fw = point_add2._field_args(spec, nr)
+    assert (n_words, got_nr) == (W, nr) and (W, nr) in point_add2.PAIRS
+    fw = list(fw)
+    assert len(fw) == W + 1 and words_int(fw[:W]) == q
+    assert q * fw[W] % (1 << 32) == (1 << 32) - 1
+    one = list(point_add2._one_words(spec))
+    assert len(one) == W and words_int(one) == (1 << (32 * W)) % q
+    # u^2 = nr in the tower: (0, 1)^2 == (nr, 0)
+    u = g2.fp.from_int([(0, 1)], device=CPU)
+    assert [c[0] for c in g2.fp.to_int(g2.fp.mul(u, u))] == [nr % q, 0]
 
 
 @pytest.mark.parametrize("name", CURVES)

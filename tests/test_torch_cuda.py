@@ -409,30 +409,28 @@ def test_bls12_pair_on_card_equals_golden(cuda, name):
 
 @pytest.mark.cuda
 def test_unported_widths_raise_before_any_kernel(cuda):
-    """On the card, bls12 G2 (12-word Fp2), its MSM and KZG set-up, and the
-    bw6-761 Fr NTT raise NotImplementedError, and launch no 8-word NTT or
-    Fp2 kernel on the way."""
+    """On the card, the Fp2 kernels called with a (words, nr) pair they
+    were not built for (bn254's Fp with u^2 = -5, bls12-381's with -7, a
+    10-word Fp), and the bw6-761 Fr NTT, raise NotImplementedError and
+    launch no NTT or Fp2 kernel on the way."""
     from gnark_crypto_tpu_torch.field import point_add2
-    from gnark_crypto_tpu_torch.protocols import kzg
 
     eight = (radix2.stage, radix2.block, four_step.sub_ntt,
              point_add2.jac_add2, point_add2.jac_double2,
              point_add2.affine_prep2, point_add2.affine_finish2,
              point_add2.jac_fold_windows2)
     before = [w.launches for w in eight]
-    for name in ("bls12_381", "bls12_377"):
-        g2 = g2_curve(name, cuda)
-        G = Jac(*(c.expand(4, -1, -1) for c in g2.generator_jac(device=cuda)))
-        with pytest.raises(NotImplementedError):
-            g2.scalar_mul(G, g2.fr.from_int([1, 2, 3, 4], mont=False,
-                                            device=cuda))
-        pts = Affine(*(c.expand(64, -1, -1).contiguous()
-                       for c in g2.generator_affine(device=cuda)))
-        with pytest.raises(NotImplementedError):
-            pippenger.msm(g2, pts, g2.fr.from_int(list(range(64)),
-                                                  mont=False, device=cuda))
-        with pytest.raises(NotImplementedError):
-            kzg.new_srs(name, 16, 12345, device=cuda)
+    for spec, nr in ((fs.BN254_FP, -5), (fs.BLS12_381_FP, -7),
+                     (fs.BLS24_315_FP, -1)):
+        x = torch.zeros((4, 2, spec.n_words), dtype=torch.int32, device=cuda)
+        bits = torch.zeros((4,), dtype=torch.int32, device=cuda)
+        for fn, args in ((point_add2.jac_add2, (x,) * 6),
+                         (point_add2.jac_double2, (x,) * 3),
+                         (point_add2.affine_prep2, (x,) * 4),
+                         (point_add2.affine_finish2, (x,) * 10 + (bits,) * 2),
+                         (point_add2.jac_fold_windows2, (x,) * 3 + (3,))):
+            with pytest.raises(NotImplementedError):
+                fn(spec, nr, *args)
     dom = Domain(fs.BW6_761_FR, 1 << 14, device=cuda)
     a = mont.from_int(fs.BW6_761_FR, list(range(1 << 14)), device=cuda)
     for dec in ("DIF", "DIT"):
@@ -463,8 +461,12 @@ def test_pair_on_card_equals_golden(cuda):
 
 # -- the G2 (Fp2) kernels, the G2 MSM and KZG ---------------------------------
 
+# the three built (words, nr) pairs: (8, -1), (12, -1), (12, -5)
+G2_CURVES = ["bn254", "bls12_381", "bls12_377"]
+
+
 def g2_multiples(g2, ks, device):
-    """[k]G2 for small k > 0 by the G2 ladder, as Jacobian (n, 2, 8)."""
+    """[k]G2 for small k > 0 by the G2 ladder, as Jacobian (n, 2, W)."""
     G = g2.generator_jac(device=device)
     n = len(ks)
     return g2.scalar_mul(Jac(*(c.expand(n, -1, -1) for c in G)),
@@ -490,17 +492,19 @@ def g2_edge_batches(g2, n, seed, device):
 
 
 @pytest.mark.cuda
-def test_fp2_jac_kernels_match_plain(cuda):
+@pytest.mark.parametrize("name", G2_CURVES)
+def test_fp2_jac_kernels_match_plain(cuda, name):
     from gnark_crypto_tpu_torch.field import point_add2
 
-    g2 = g2_curve("bn254", cuda)
+    g2 = g2_curve(name, cuda)
     fp, nr = g2.spec.fp, g2.fp.nr
     P, Qb = g2_edge_batches(g2, 515, 6, cuda)
     wrappers = (point_add2.jac_add2, point_add2.jac_double2)
-    before = [w.launches for w in wrappers]
+    before = [w.launches_by_width.get(fp.n_words, 0) for w in wrappers]
     got = point_add2.jac_add2(fp, nr, *P, *Qb)
     dbl = point_add2.jac_double2(fp, nr, *P)
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1]
+    assert [w.launches_by_width[fp.n_words] - b
+            for w, b in zip(wrappers, before)] == [1, 1]
     for k, w in zip(got, point_add2.jac_add2_plain(fp, nr, *P, *Qb)):
         assert torch.equal(k, w)
     for k, w in zip(dbl, point_add2.jac_double2_plain(fp, nr, *P)):
@@ -508,16 +512,17 @@ def test_fp2_jac_kernels_match_plain(cuda):
     # the group law routes through the kernel and agrees with the composed
     # Fp2 formulas
     added = g2.add(P, Qb)
-    assert point_add2.jac_add2.launches == before[0] + 2
+    assert point_add2.jac_add2.launches_by_width[fp.n_words] == before[0] + 2
     assert all(torch.equal(u, v) for u, v in
                zip(added, g2._add_composed(P, Qb)))
 
 
 @pytest.mark.cuda
-def test_fp2_affine_level_and_fold_kernels_match_plain(cuda):
+@pytest.mark.parametrize("name", G2_CURVES)
+def test_fp2_affine_level_and_fold_kernels_match_plain(cuda, name):
     from gnark_crypto_tpu_torch.field import point_add2
 
-    g2 = g2_curve("bn254", cuda)
+    g2 = g2_curve(name, cuda)
     fp, nr = g2.spec.fp, g2.fp.nr
     P, Qb = g2_edge_batches(g2, 1029, 7, cuda)
     L, R = g2.to_affine(P), g2.to_affine(Qb)
@@ -533,9 +538,10 @@ def test_fp2_affine_level_and_fold_kernels_match_plain(cuda):
                     point_add2.affine_finish2_plain(fp, nr, *args)):
         assert torch.equal(k, w)
     T = Jac(*(c[:6].contiguous() for c in P))
-    before = point_add2.jac_fold_windows2.launches
+    by_width = point_add2.jac_fold_windows2.launches_by_width
+    before = by_width.get(fp.n_words, 0)
     got = point_add2.jac_fold_windows2(fp, nr, *T, 5)
-    assert point_add2.jac_fold_windows2.launches == before + 1
+    assert by_width[fp.n_words] == before + 1
     for k, w in zip(got, point_add2.jac_fold_windows2_plain(fp, nr, *T, 5)):
         assert torch.equal(k, w)
 
@@ -579,34 +585,120 @@ def test_fp2_kernels_reject(cuda):
         point_add2.jac_double2(fp, -1, P.x[::2], P.y[::2], P.z[::2])
     with pytest.raises(NotImplementedError):
         point_add2.jac_double2(fp, -5, *P)
-    bls = g2_curve("bls12_381", cuda)  # 12-word Fp2
+    bls = g2_curve("bls12_381", cuda)  # 12-word Fp2: bn254's tensors refused
     x = bls.fp.zeros((4,), device=cuda)
+    with pytest.raises(ValueError):
+        point_add2.jac_double2(bls.spec.fp, -1, *P)
     for fn, args in ((point_add2.jac_double2, (x, x, x)),
                      (point_add2.affine_prep2, (x, x, x, x)),
                      (point_add2.jac_fold_windows2, (x, x, x, 3))):
         with pytest.raises(NotImplementedError):
-            fn(bls.spec.fp, bls.fp.nr, *args)
+            fn(bls.spec.fp, -3, *args)
+    bls24 = curve_ops(cs.get_curve("bls24_315_g1"))  # 10-word Fp
     with pytest.raises(NotImplementedError):
-        bls.double(bls.inf_jac((2,), device=cuda))
+        point_add2.jac_double2(bls24.spec.fp, -1, *(
+            torch.zeros((2, 2, 10), dtype=torch.int32, device=cuda),) * 3)
+
+
+def fp2_oracle_add(P, Q, p, nr):
+    """Affine G2 addition (a = 0) over Fp[u]/(u^2 - nr) with Python ints;
+    an element is (re, im), None is infinity. (This file imports no other
+    test module: a ``tests`` package installed in site-packages shadows
+    the repository's ``tests`` directory, which has no ``__init__.py``.)"""
+    def mul(x, y):
+        return ((x[0] * y[0] + nr * x[1] * y[1]) % p,
+                (x[0] * y[1] + x[1] * y[0]) % p)
+
+    def inv(x):
+        d = pow((x[0] * x[0] - nr * x[1] * x[1]) % p, -1, p)
+        return x[0] * d % p, -x[1] * d % p
+
+    def sub(x, y):
+        return (x[0] - y[0]) % p, (x[1] - y[1]) % p
+
+    if P is None or Q is None:
+        return Q if P is None else P
+    (x1, y1), (x2, y2) = P, Q
+    if x1 == x2 and sub((0, 0), y1) == y2:
+        return None
+    if P == Q:
+        sq = mul(x1, x1)
+        lam = mul((3 * sq[0] % p, 3 * sq[1] % p),
+                  inv((2 * y1[0] % p, 2 * y1[1] % p)))
+    else:
+        lam = mul(sub(y2, y1), inv(sub(x2, x1)))
+    x3 = sub(sub(mul(lam, lam), x1), x2)
+    return x3, sub(mul(lam, sub(x1, x3)), y1)
+
+
+def fp2_oracle_mul(P, k, p, nr):
+    acc = None
+    while k:
+        if k & 1:
+            acc = fp2_oracle_add(acc, P, p, nr)
+        P = fp2_oracle_add(P, P, p, nr)
+        k >>= 1
+    return acc
+
+
+def g2_aff_ints(g2, pt):
+    """G2 Jacobian points -> ((x.re, x.im), (y.re, y.im)) ints, None at
+    infinity."""
+    aff = g2.to_affine(Jac(*(c.reshape(-1, *c.shape[-2:]) for c in pt)))
+    xs, ys = (list(zip(*g2.fp.to_int(c))) for c in aff)
+    return [None if x == (0, 0) and y == (0, 0) else (x, y)
+            for x, y in zip(xs, ys)]
 
 
 @pytest.mark.cuda
-def test_commit_open_verify_on_card(cuda):
-    """A 2^12 commit/open/verify on the card, against the alpha oracle."""
+@pytest.mark.parametrize("name", ["bls12_381", "bls12_377"])
+def test_bls12_g2_msm_2e8_matches_oracle(cuda, name):
+    """A bls12 G2 MSM of 2^8 points [i+1]G2 on the 12-word Fp2 kernels, at
+    c = 5 so that phase 1 runs (51 windows x 256 lanes), equals
+    [sum s_i (i+1) mod r]G2 by the Python-int Fp2 ladder."""
+    from gnark_crypto_tpu_torch.field import point_add2
+
+    g2 = g2_curve(name, cuda)
+    p, r, nr = g2.spec.fp.modulus, g2.spec.fr.modulus, g2.fp.nr
+    n = 1 << 8
+    pts = g2.to_affine(g2_multiples(g2, list(range(1, n + 1)), cuda))
+    rng = random.Random(n + nr)
+    ss = [rng.randrange(r) for _ in range(n)]
+    wrappers = [getattr(point_add2, k) for k in (
+        "affine_prep2", "affine_finish2", "jac_add2", "jac_fold_windows2")]
+    before = [w.launches_by_width.get(12, 0) for w in wrappers]
+    got = pippenger.msm(g2, pts, g2.fr.from_int(ss, mont=False, device=cuda),
+                        c=5)
+    assert all(w.launches_by_width.get(12, 0) > b
+               for w, b in zip(wrappers, before))
+    total = sum(s * (i + 1) for i, s in enumerate(ss)) % r
+    assert g2_aff_ints(g2, Jac(*(c[None] for c in got))) == [
+        fp2_oracle_mul((g2.spec.gx, g2.spec.gy), total, p, nr)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", G2_CURVES)
+def test_commit_open_verify_on_card(cuda, name):
+    """A 2^12 new_srs/commit/open/verify on the card, against the alpha
+    oracle; [alpha]G2 of the SRS against the Python-int Fp2 ladder."""
     from gnark_crypto_tpu_torch.protocols import kzg
 
-    g1 = curve_ops(cs.get_curve("bn254_g1"))
+    g1 = curve_ops(cs.get_curve(f"{name}_g1"))
     r = g1.spec.fr.modulus
     rng = random.Random(12)
     alpha = rng.randrange(r)
     n = 1 << 12
-    srs = kzg.new_srs("bn254", n, alpha, device=cuda)
+    srs = kzg.new_srs(name, n, alpha, device=cuda)
+    g2 = g2_curve(name, cuda)
+    assert g2_aff_ints(g2, g2.from_affine(srs.vk.alpha_g2)) == [
+        fp2_oracle_mul((g2.spec.gx, g2.spec.gy), alpha, g2.spec.fp.modulus,
+                       g2.fp.nr)]
     coeffs = [rng.randrange(r) for _ in range(n)]
     a = rng.randrange(r)
     poly = g1.fr.from_int(coeffs, mont=False, device=cuda)
     point = g1.fr.from_int([a], mont=False, device=cuda)
-    C = kzg.commit("bn254", srs.pk, poly)
-    proof = kzg.open_poly("bn254", srs.pk, poly, point)
+    C = kzg.commit(name, srs.pk, poly)
+    proof = kzg.open_poly(name, srs.pk, poly, point)
     p_alpha = p_a = 0
     for c in reversed(coeffs):
         p_alpha = (p_alpha * alpha + c) % r
@@ -621,10 +713,10 @@ def test_commit_open_verify_on_card(cuda):
     assert aff_ints(g1, g1.from_affine(proof.h)) == aff_ints(
         g1, Jac(*(c[1:] for c in g1.from_affine(want))))
     assert g1.fr.to_int(proof.claimed_value, mont=False) == [p_a]
-    assert bool(kzg.verify("bn254", C, proof, point, srs.vk))
+    assert bool(kzg.verify(name, C, proof, point, srs.vk))
     bad = kzg.OpeningProof(proof.h, g1.fr.from_int(
         [(p_a + 1) % r], mont=False, device=cuda))
-    assert not bool(kzg.verify("bn254", C, bad, point, srs.vk))
+    assert not bool(kzg.verify(name, C, bad, point, srs.vk))
 
 
 # -- the small fields: koalabear/babybear and goldilocks NTT kernels ---------

@@ -3,8 +3,9 @@
 * Each plain Fp2 kernel version (``field/point_add2.py``) against the JAX
   Pallas kernel of ``gnark_crypto_tpu/field/pallas/point_add2.py`` in
   interpret mode, with P = Q, P = -Q and infinity lanes: all five on
-  bn254 (u^2 = -1), and the tree level on bls12-377 (u^2 = -5, the
-  small-multiple path of the Fp2 product). Outputs are compared as
+  bn254 (u^2 = -1), and the tree level on bls12-381 (12 words, u^2 = -1)
+  and bls12-377 (12 words, u^2 = -5, the small-multiple path of the Fp2
+  product). Outputs are compared as
   canonical integers: both packages run the same formulas in the same
   order, so Jacobian coordinates are compared as they are. One interpret
   call costs minutes on a CPU (XLA compiles the unrolled limb products),
@@ -13,6 +14,9 @@
   composed Fp2 group law, coordinate by coordinate.
 * G2 ``msm`` (straight to phase 2, and with phase 1 running) and
   ``batch_scalar_mul`` against a Python-int Fp2 oracle.
+* At 12 words, the bls12 G2 the 12-word Fp2 kernels carry on the card:
+  the plain ``jac_add2``/``jac_double2`` and a G2 ``msm`` of 2^4 points
+  (phase 1 running) against the Python-int Fp2 oracle, on both curves.
 
 Inputs are made from a seed; the tolerance is exact equality.
 """
@@ -31,7 +35,7 @@ from gnark_crypto_tpu_torch.field import point_add2
 from gnark_crypto_tpu_torch.msm import pippenger as tpp
 
 CPU = "cpu"
-NR = {"bn254": -1, "bls12_377": -5}
+NR = {"bn254": -1, "bls12_381": -1, "bls12_377": -5}
 
 
 # -- a Python-int oracle over Fp2 = Fp[u]/(u^2 - nr) -------------------------
@@ -197,7 +201,7 @@ def test_plain_fp2_jac_double_matches_pallas():
     assert affine_of(g2, Jac(*got)) == [oracle_add(u, u, p, -1) for u in ps]
 
 
-@pytest.mark.parametrize("name", ["bn254", "bls12_377"])
+@pytest.mark.parametrize("name", ["bn254", "bls12_381", "bls12_377"])
 def test_plain_fp2_affine_level_matches_pallas(name):
     """affine_prep2, the port's log-depth inverse, affine_finish2 with all
     eight tree-bit patterns."""
@@ -346,3 +350,59 @@ def test_g2_batch_scalar_mul_vs_oracle():
     got = tpp.batch_scalar_mul(g2, g2.generator_affine(device=CPU),
                                g2.fr.from_int(ks, mont=False, device=CPU))
     assert affine_of(g2, got) == [oracle_mul(gen(g2), k, p, nr) for k in ks]
+
+
+# -- bls12 G2 at 12 words -----------------------------------------------------
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread: the plain 12-word point versions are thousands
+    of small tensor ops, and several test workers share the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("name", ["bls12_381", "bls12_377"])
+def test_plain_fp2_jac_12_words_vs_oracle(name, one_torch_thread):
+    """jac_add2 (with its doubling fallback) and jac_double2 at 12 words,
+    u^2 = -1 and -5, on the edge lanes: affine results == the oracle."""
+    g2, p, _, nr = setup(name)
+    assert g2.fp.nr == nr
+    fp = g2.spec.fp
+    ps, qs = edge_pairs(g2, p, nr, 15)
+    P, Q = jac(g2, ps), jac(g2, qs)
+    assert P.x.shape == (len(ps), 2, 12)
+    got = point_add2.jac_add2(fp, nr, *P, *Q)
+    assert affine_of(g2, Jac(*got)) == [oracle_add(u, v, p, nr)
+                                        for u, v in zip(ps, qs)]
+    got = point_add2.jac_double2(fp, nr, *P)
+    assert affine_of(g2, Jac(*got)) == [oracle_add(u, u, p, nr) for u in ps]
+
+
+@pytest.mark.parametrize("name", ["bls12_381", "bls12_377"])
+def test_bls12_g2_msm_2e4_vs_oracle(name, monkeypatch, one_torch_thread):
+    """n = 16, c = 4: 64 windows x 16 points = 1,024 lanes; with the
+    phase-1 width cut to 128, three batch-affine levels (affine_prep2 at
+    12 words) run before phase 2. A zero scalar, an infinite point and a
+    duplicate point."""
+    calls = []
+    prep = point_add2.affine_prep2
+
+    def counting_prep(*args):
+        calls.append(args[2].shape)
+        return prep(*args)
+
+    monkeypatch.setattr(point_add2, "affine_prep2", counting_prep)
+    monkeypatch.setattr(tpp, "BOT_W", 128)
+    g2, p, r, nr = setup(name)
+    pts, ks = msm_inputs(g2, p, nr, r, 16, 16)
+    ks[0] = 0
+    pts[1] = None
+    pts[5] = pts[6]
+    got = tpp.msm(g2, to_port(g2, pts),
+                  g2.fr.from_int(ks, mont=False, device=CPU), c=4)
+    assert [s[0] for s in calls] == [512, 256, 128]
+    assert all(s[1:] == (2, 12) for s in calls)
+    assert affine_of(g2, got) == [oracle_msm(pts, ks, p, nr)]
