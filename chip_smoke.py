@@ -63,11 +63,12 @@ Phases:
    Python-integer samples; each MSM against msm([k_i]G, s) =
    [sum s_i k_i mod r]G, a 2^8 random-point MSM against a Python-int curve
    oracle, and ``batch_scalar_mul`` lanes against Python integers; each
-   pairing against the golden bytes or its expected check; the VM kernel
-   on the 2048-pair chain's ``product`` launch and on a random program of
-   all six ops (for bls12 at 12 words, with ``mont_mul`` on the widest
-   12-word product of the MSM path); the five Fp2 kernels on the inputs
-   they received in a second 2^16 G2 MSM (the fold on its first 4
+   pairing against the golden bytes or its expected check; the wave VM
+   kernel on the 2048-pair chain's ``product`` launch and on two random
+   programs of all six ops, scheduled into waves of 8 and (with a wide
+   operand window) 16 rows (for bls12 at 12 words, with ``mont_mul`` on
+   the widest 12-word product of the MSM path); the five Fp2 kernels on
+   the inputs they received in a second 2^16 G2 MSM (the fold on its first 4
    windows), on each of the three curves; the KZG results
    against alpha-oracle points and their expected verdicts; the four
    small-field kernels (both forms of ``ntt_f31_stage``) on every distinct
@@ -78,7 +79,8 @@ Phases:
    (bytes over 3.35 TB/s, or 32-bit multiply-adds over the INT32 rate,
    whichever is larger); whole transforms; the G1 and G2 MSMs at 2^20
    split into their steps (host clock, synchronised after each); each VM
-   program launch of the pairing path beside its serial product count;
+   program launch of the pairing path beside its waves, warps, registers
+   and longest chain of dependent rows;
    pairs/s at 2048 and the batch-2 ``pairing_check`` latency; each G2 MSM
    and KZG call (host clock, synchronised); the small-field transforms'
    elems/s, SIS elems/s and ``hash_many`` columns/s.
@@ -743,36 +745,43 @@ class PairingSlice:
               "changed, is False")
         check(bool(self.check_kzg), f"pairing_check {name} at batch 2 "
               "(aG1, bG2), (-abG1, G2) is True")
+        variants = ("full", "full", "miller", "product", "reduce", "miller",
+                    "product", "reduce", "full")
         progs = [prog.n_instrs for prog, _ in self.calls]
-        want = [vp.build_program(self.NAME, v).n_instrs for v in
-                ("full", "full", "miller", "product", "reduce", "miller",
-                 "product", "reduce", "full")]
-        check(progs == want,
-              f"vm_execute {name} programs on the path: {progs}")
+        check(len(self.calls) == len(variants) and all(
+            prog is vp.program(name, v)
+            for (prog, _), v in zip(self.calls, variants)),
+            f"vm_execute {name} programs on the path, scheduled into waves: "
+            f"{progs}")
         # the kernel against its plain version: the product fold of the
-        # 2048-pair chain, and a random program of all six ops
+        # 2048-pair chain, and random programs of all six ops, scheduled:
+        # one as the earlier slices had it, one with a wide operand window
+        # that fills waves of 16 rows
         prod = next(c for c in self.calls
-                    if c[0] is vp.build_program(self.NAME, "product"))
+                    if c[0] is vp.program(name, "product"))
         compare(vm_row, vm.vm_execute(*prod), vm.vm_execute_plain(*prod),
                 f"{self.tag}product program, {prod[1].shape[1]} lanes")
-        rand = vm.random_program(self.spec.fp, 2900, seed=SEED)
-        n_pad = 4 * rand.tile
-        state = vm._entry_consts(rand, str(self.dev))[:, None, :].repeat(
-            1, n_pad, 1)
-        vals = self.nprng.integers(0, 1 << 32, size=(len(
-            rand.entry_inputs), n_pad, self.spec.fp.n_words),
-            dtype=np.uint32)
-        vals[..., -1] %= self.spec.fp.q_words[-1]
-        edges = self.g1.fp.from_int([0, 1, self.spec.fp.modulus - 1],
-                                    device=self.dev)
-        for i, (reg, _) in enumerate(rand.entry_inputs):
-            state[reg] = self.torch.from_numpy(vals[i].view(np.int32)).to(
-                self.dev)
-            state[reg, :3] = edges
-        compare(vm_row, vm.vm_execute(rand, state),
-                vm.vm_execute_plain(rand, state),
-                f"{self.tag}random program of {rand.n_instrs} rows "
-                f"{rand.op_counts()}, {n_pad} lanes")
+        for seed, window, warps in ((SEED, 12, 8), (SEED + 1, 64, 16)):
+            rand = vm.schedule(vm.random_program(
+                self.spec.fp, 2900, seed=seed, window=window), warps)
+            n_pad = 4 * rand.tile
+            state = vm._entry_consts(rand, str(self.dev))[:, None, :].repeat(
+                1, n_pad, 1)
+            vals = self.nprng.integers(0, 1 << 32, size=(len(
+                rand.entry_inputs), n_pad, self.spec.fp.n_words),
+                dtype=np.uint32)
+            vals[..., -1] %= self.spec.fp.q_words[-1]
+            edges = self.g1.fp.from_int([0, 1, self.spec.fp.modulus - 1],
+                                        device=self.dev)
+            for i, (reg, _) in enumerate(rand.entry_inputs):
+                state[reg] = self.torch.from_numpy(vals[i].view(np.int32)
+                                                   ).to(self.dev)
+                state[reg, :3] = edges
+            compare(vm_row, vm.vm_execute(rand, state),
+                    vm.vm_execute_plain(rand, state),
+                    f"{self.tag}random program, operand window {window}: "
+                    f"{rand.n_waves} waves of {warps} rows, K = "
+                    f"{rand.n_regs}, {rand.op_counts()}, {n_pad} lanes")
 
     # -- phase 3 -------------------------------------------------------------
     def timings(self, cuda_ms, timings, kernel_rows):
@@ -782,7 +791,7 @@ class PairingSlice:
         name = self.NAME
         W = self.spec.fp.n_words
         mm = mads_per_product(W)
-        labels = {vp.build_program(name, v): v for v in
+        labels = {vp.program(name, v): v for v in
                   ("full", "miller", "product", "reduce")}
         seen = set()
         for prog, state in self.calls:
@@ -795,10 +804,15 @@ class PairingSlice:
             nbytes = (state.numel() * 4 + prog.n_instrs * 16
                       + len(prog.out_regs) * (4 + lanes * 4 * W))
             b_ms, b_by = bound(nbytes, mm * n_mul * lanes)
-            row = {"ms": cuda_ms(lambda: vm.vm_execute(prog, state),
-                                 reps=2, rounds=3),
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "serial_products": n_mul, "instructions": prog.n_instrs,
+            chain, chain_mul = vm.critical_path(prog)
+            ms = cuda_ms(lambda: vm.vm_execute(prog, state), reps=2,
+                         rounds=3)
+            row = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "products": n_mul,
+                   "rows": prog.n_instrs - prog.op_counts()["NOP"],
+                   "waves": prog.n_waves, "warps": prog.warps,
+                   "us_per_wave": ms * 1e3 / prog.n_waves,
+                   "longest_chain": chain, "longest_chain_products": chain_mul,
                    "registers": prog.n_regs, "lanes": lanes,
                    "blocks": lanes // prog.tile}
             if variant == "product":

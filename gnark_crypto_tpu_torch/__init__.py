@@ -14,7 +14,7 @@ Ported so far (see ROADMAP.md for the rest):
   field/      Montgomery word engine; the small-field engines (f31.py:
               koalabear, babybear; f64.py: goldilocks); mont_mul,
               exp_const, point (Fp and Fp2) and VM kernels (field/vm.py:
-              the straight-line program executor)
+              the straight-line program executor and its wave scheduler)
   ntt/        radix-2 domains over any engine; radix-2 and four-step NTT
               kernels (bn254), the f31 and f64 NTT kernels
               (radix2_f31.py, radix2_f64.py); extension-vector NTT

@@ -13,7 +13,8 @@ lane product + final exp, the ``full`` program), or a short chain for
 larger batches: ``miller`` per tile, ``product`` folds while more than one
 tile of tile-products remains, then ``reduce`` (lane product + final exp).
 The product over lanes is exact, so the GT result does not depend on the
-tiling.
+tiling. Every program runs as ``vm.schedule`` lays it out in waves
+(:func:`program`), on the CPU as on the card.
 
 Infinite pairs are neutralized without branches: the caller feeds per-lane
 Montgomery masks (m, mc) in {0, 1}, and the program computes
@@ -46,6 +47,12 @@ VM_FAMILIES = ("bn254", "bls12_381", "bls12_377")
 # of shared memory at 32 lanes. The reference's 256 answered the TPU's VMEM
 # and its 128-lane rotates.
 _TILE = {"bn254": 32, "bls12_381": 32, "bls12_377": 32}
+
+# rows a wave, i.e. warps of the VM block, for every program variant: on
+# the H100 each of the 12 pairing programs runs fastest at 16 of 4, 8, 12
+# and 16 warps, with little left between 12 and 16, where the SM's four
+# schedulers are issue-bound (tools/vm_waves.py; PERF.md)
+WARPS = 16
 
 _NC = 12                 # GT coefficients over fp
 _GT_SHAPE = (2, 3, 2)    # [w][v][u]
@@ -147,6 +154,13 @@ def _build_program(name: str, variant: str, tile: int) -> vm.Program:
     return asm.build(outputs(final_exponentiation(ctx, facc)))
 
 
+def program(name: str, variant: str) -> vm.Program:
+    """The program that :func:`pair_vm` runs: ``build_program``'s at the
+    family's tile, scheduled into waves of ``WARPS`` rows (cached by
+    ``vm.schedule``)."""
+    return vm.schedule(build_program(name, variant), WARPS)
+
+
 def _pad_rows(x, n_pad: int, fill):
     """(n, W) -> (n_pad, W) with constant fill rows."""
     n, W = x.shape
@@ -196,12 +210,12 @@ def pair_vm(name: str, P, QX, QY):
         return torch.stack(coeffs, 0).reshape(*_GT_SHAPE, -1)
 
     if n_pad == tile:
-        out = vm.execute(build_program(name, "full"), inputs, n_pad)
+        out = vm.execute(program(name, "full"), inputs, n_pad)
         return gt_from(out, 0)
 
     # multi-tile: per-tile miller products, then cross-tile reduce+finalexp;
     # for more than one tile of tile-products, fold with product rounds
-    out = vm.execute(build_program(name, "miller"), inputs, n_pad)
+    out = vm.execute(program(name, "miller"), inputs, n_pad)
     T = n_pad // tile
     vals = [out[f"g{i}"][::tile] for i in range(_NC)]
 
@@ -211,11 +225,11 @@ def pair_vm(name: str, P, QX, QY):
 
     while T > tile:
         t_pad = -(-T // tile) * tile
-        out = vm.execute(build_program(name, "product"),
+        out = vm.execute(program(name, "product"),
                          tile_inputs(vals, t_pad), t_pad)
         T = t_pad // tile
         vals = [out[f"g{i}"][::tile] for i in range(_NC)]
 
-    out = vm.execute(build_program(name, "reduce"), tile_inputs(vals, tile),
+    out = vm.execute(program(name, "reduce"), tile_inputs(vals, tile),
                      tile)
     return gt_from(out, 0)

@@ -327,18 +327,26 @@ def test_point_kernels_reject(cuda):
         bls.double(bls.generator_jac(device=cuda))
 
 
-@pytest.mark.cuda
-def test_vm_kernel_matches_plain(cuda):
-    """A random program of all six ops over three 32-lane tiles with edge
-    values; the kernel and the plain executor on the same entry rows."""
-    fp = fs.BN254_FP
-    prog = vm.random_program(fp, 2900, seed=17)
-    n_pad = 3 * prog.tile
+def vm_state(prog, n_pad, cuda):
+    """Entry rows of ``prog``: its constants, random canonical inputs with
+    0, 1 and q - 1 in the first lanes."""
+    spec = prog.spec
     state = vm._entry_consts(prog, str(cuda))[:, None, :].repeat(1, n_pad, 1)
     for i, (reg, _) in enumerate(prog.entry_inputs):
-        vals = [0, 1, fp.modulus - 1] + [
-            random.Random(i).randrange(fp.modulus) for _ in range(n_pad)]
-        state[reg] = mont.from_int(fp, vals[:n_pad], device=cuda)
+        rng = random.Random(i)
+        vals = [0, 1, spec.modulus - 1] + [
+            rng.randrange(spec.modulus) for _ in range(n_pad)]
+        state[reg] = mont.from_int(spec, vals[:n_pad], device=cuda)
+    return state
+
+
+@pytest.mark.cuda
+def test_vm_kernel_matches_plain(cuda):
+    """A random program of all six ops, scheduled into waves of 8 rows,
+    over three 32-lane tiles with edge values; the kernel and the plain
+    executor on the same entry rows."""
+    prog = vm.schedule(vm.random_program(fs.BN254_FP, 2900, seed=17), 8)
+    state = vm_state(prog, 3 * prog.tile, cuda)
     before = vm.vm_execute.launches
     got = vm.vm_execute(prog, state)
     assert vm.vm_execute.launches == before + 1
@@ -346,19 +354,36 @@ def test_vm_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 4, 16])
+@pytest.mark.parametrize("spec", [fs.BN254_FP, *W12[:2]],
+                         ids=lambda s: s.name)
+def test_vm_wave_kernel_matches_plain_wide(cuda, spec, warps):
+    """Random programs with a wide operand window, whose waves are full,
+    at 8 and 12 words and 1, 4 and 16 warps a block."""
+    prog = vm.schedule(vm.random_program(spec, 2900, seed=23, window=64),
+                       warps)
+    state = vm_state(prog, 2 * prog.tile, cuda)
+    assert torch.equal(vm.vm_execute(prog, state),
+                       vm.vm_execute_plain(prog, state))
+
+
+@pytest.mark.cuda
 def test_vm_kernel_rejects(cuda):
-    prog = vm.random_program(fs.BN254_FP, 50, seed=3)
+    built = vm.random_program(fs.BN254_FP, 50, seed=3)
+    prog = vm.schedule(built, 8)
     state = torch.zeros((prog.n_entry, prog.tile, 8), dtype=torch.int32,
                         device=cuda)
     with pytest.raises(ValueError):
         vm.vm_execute(prog, state.to(torch.int64))
     with pytest.raises(ValueError):
         vm.vm_execute(prog, state.transpose(0, 1).contiguous().transpose(0, 1))
-    bls = vm.random_program(fs.BLS24_315_FP, 50, seed=3)  # 10-word Fp
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # the kernel runs scheduled programs
+        vm.vm_execute(built, state)
+    bls = vm.schedule(vm.random_program(fs.BLS24_315_FP, 50, seed=3), 8)
+    with pytest.raises(NotImplementedError):  # 10-word Fp
         vm.vm_execute(bls, torch.zeros((bls.n_entry, bls.tile, 10),
                                        dtype=torch.int32, device=cuda))
-    prog12 = vm.random_program(fs.BLS12_381_FP, 50, seed=3)
+    prog12 = vm.schedule(vm.random_program(fs.BLS12_381_FP, 50, seed=3), 8)
     assert prog12.n_entry == prog.n_entry
     with pytest.raises(ValueError):  # a 12-word program on 8-word rows
         vm.vm_execute(prog12, state)
@@ -368,14 +393,8 @@ def test_vm_kernel_rejects(cuda):
 @pytest.mark.parametrize("spec", W12[:2], ids=lambda s: s.name)
 def test_vm_kernel_matches_plain_12_words(cuda, spec):
     """The random program of all six ops at 12 words (bls12 Fp)."""
-    prog = vm.random_program(spec, 2900, seed=19)
-    n_pad = 3 * prog.tile
-    state = vm._entry_consts(prog, str(cuda))[:, None, :].repeat(1, n_pad, 1)
-    for i, (reg, _) in enumerate(prog.entry_inputs):
-        rng = random.Random(i)
-        vals = [0, 1, spec.modulus - 1] + [
-            rng.randrange(spec.modulus) for _ in range(n_pad)]
-        state[reg] = mont.from_int(spec, vals[:n_pad], device=cuda)
+    prog = vm.schedule(vm.random_program(spec, 2900, seed=19), 8)
+    state = vm_state(prog, 3 * prog.tile, cuda)
     before = vm.vm_execute.launches_by_width.get(12, 0)
     got = vm.vm_execute(prog, state)
     assert vm.vm_execute.launches_by_width[12] == before + 1

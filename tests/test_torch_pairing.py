@@ -249,5 +249,5 @@ def test_multi_tile_chain_pairing_check(monkeypatch, tamper):
     monkeypatch.setattr(vm_pairing.vm, "execute", spy)
     ok = api.pairing_check(NAME, P, Q.x, Q.y)
     assert bool(ok) is (not tamper)
-    assert calls == [vm_pairing.build_program(NAME, v, 2).n_instrs
+    assert calls == [vm_pairing.program(NAME, v).n_instrs
                      for v in ("miller", "product", "reduce")]
