@@ -124,6 +124,25 @@ def mads_per_product(words: int) -> int:
     for m*q, W for m (136 at 8 words, 300 at 12)."""
     return 2 * words * words + words
 
+
+def exp_design(words: int) -> str:
+    """exp_const's design at a width, as csrc/exp.cu fixes it (kTeam,
+    kLanes)."""
+    team = {8: 1, 12: 4}[words]
+    product = "the column product" if team == 1 else "a team product"
+    return (f"right to left, T={team} lanes an element ({product}), the "
+            "multiplies on warps of their own, 32 lanes a role")
+
+
+def dbl2_design(words: int, nr: int) -> str:
+    """jac_double2's design at (words, u^2), as csrc/point_add2.cu fixes it
+    (kDbl2Pair, kThreads)."""
+    pair = (words, nr) == (12, -1)
+    return (f"Fp2 sqr in 2 base products, "
+            f"{'a pair of threads' if pair else 'one thread'} a point, "
+            "column product, 128 threads a block")
+
+
 FAILURES: list[str] = []
 
 
@@ -515,9 +534,12 @@ class MsmSlice:
         out["jac_double"] = (c[0].shape[0] * 6 * ELEM_BYTES,
                              (7 if a == 0 else 10) * mm * c[0].shape[0])
         spec, x, e = self.kargs["exp_const"]
-        self.exp_serial = e.bit_length() + bin(e).count("1")
+        # right to left: the chain is the squares, nbits - 1 of them; the
+        # multiplies, popcount - 1, trail it
+        self.exp_serial = e.bit_length() - 1
+        products = self.exp_serial + bin(e).count("1") - 1
         out["exp_const"] = (x.shape[0] * 2 * ELEM_BYTES,
-                            mm * self.exp_serial * x.shape[0])
+                            mm * products * x.shape[0])
         for tag, (spec, a, fx, fy, fz, c_) in self.fold_args.items():
             nwin = fx.shape[0]
             serial = c_ * (nwin - 1) * 7 + (nwin - 1) * 16
@@ -543,6 +565,9 @@ class MsmSlice:
                    "bound_by": b_by, "lanes": width(args)}
             if kname == "exp_const":
                 row["serial_products"] = self.exp_serial
+                row["us_per_serial_product"] = (row["ms"] * 1e3
+                                                / self.exp_serial)
+                row["design"] = exp_design(self.W)
             if serial:
                 row["serial_products"] = serial[0]
             label = self.tag + (name if kname == "jac_fold_windows" else (
@@ -1085,6 +1110,14 @@ class G2MsmSlice:
             for i, (o, w_) in enumerate(zip(outs, wants)):
                 compare(k + self.suffix, o, w_,
                         f"{self.tag}G2 {width(args)} lanes, output {i}")
+        # the double's ragged edge: an odd batch leaves a pair half past n
+        spec, nr, *c = self.kargs["jac_double2"]
+        odd = [t[:t.shape[0] - 3] for t in c]
+        for i, (o, w_) in enumerate(zip(
+                self.pa2.jac_double2(spec, nr, *odd),
+                self.pa2.jac_double2_plain(spec, nr, *odd))):
+            compare("jac_double2" + self.suffix, o, w_,
+                    f"{self.tag}G2 {odd[0].shape[0]} lanes, output {i}")
 
     # -- phase 3 -------------------------------------------------------------
     def bounds(self):
@@ -1114,14 +1147,15 @@ class G2MsmSlice:
         both = ~(torch.all(c[2] == 0, -1).all(-1)
                  | torch.all(c[5] == 0, -1).all(-1))
         out["jac_add2"] = (c[0].shape[0] * 9 * E2, 16 * mm2 * int(both.sum()))
+        # the double: 2 Fp2 products and 5 Fp2 squares of 2 base products
         spec, nr, *c = self.kargs["jac_double2"]
         out["jac_double2"] = (c[0].shape[0] * 6 * E2,
-                              7 * mm2 * c[0].shape[0])
+                              16 * mads_per_product(self.W) * c[0].shape[0])
         self.fold_serial = {}
         for tag, args in [("check", self.kargs["jac_fold_windows2"])] + list(
                 self.fold_args.items()):
             nwin, c_ = args[2].shape[0], args[5]
-            serial = 3 * (c_ * (nwin - 1) * 7 + (nwin - 1) * 16)
+            serial = c_ * (nwin - 1) * 16 + (nwin - 1) * 3 * 16
             self.fold_serial[tag] = serial
             key = ("jac_fold_windows2" if tag == "check"
                    else f"jac_fold_windows2 {tag}")
@@ -1141,6 +1175,8 @@ class G2MsmSlice:
             if kname == "jac_fold_windows2":
                 row["serial_products"] = self.fold_serial[tag or "check"]
                 row["windows"], row["c"] = args[2].shape[0], args[5]
+            if kname == "jac_double2":
+                row["design"] = dbl2_design(self.W, self.nr)
             if not tag:
                 row["plain_ms"] = self.plain_ms[kname]
                 kernel_rows[kname + self.suffix] = row
@@ -1890,13 +1926,16 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 3
     def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
-        """Median over rounds of the mean time of `reps` back-to-back calls."""
+        """Median over rounds of the mean time of `reps` back-to-back calls;
+        the calls queue behind a spin kernel, so that a wrapper's host time
+        does not count where its kernel is shorter."""
         fn()
         torch.cuda.synchronize()
         per = []
         for _ in range(rounds):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(5_000_000)
             start.record()
             for _ in range(reps):
                 fn()
@@ -2034,7 +2073,8 @@ def main() -> int:
             "replaces": sources[base][1], "launches": launches[name],
             "max_abs_err": err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None,
+            **({"design": r["design"]} if "design" in r else {})})
     print(json.dumps({"timings": timings}), flush=True)
     print(json.dumps({"kernels": kernel_line}), flush=True)
 

@@ -15,6 +15,7 @@
 
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 #include <cuda_runtime.h>
 
 namespace gct {
@@ -177,6 +178,142 @@ __device__ __forceinline__ ElemT<W> mont_mul(const ElemT<W>& a,
 #pragma unroll
   for (int j = 0; j < W; ++j) r.w[j] = t[j];
   return reduce_once(r, t[W], fc);
+}
+
+template <int W>
+__device__ __forceinline__ ElemT<W> sqr(const ElemT<W>& a,
+                                        const FieldConstT<W>& fc) {
+  return mont_mul(a, a, fc);
+}
+
+// The latency-short product, for the kernels that wait on one element's
+// chain of products. mont_mul above threads one 64-bit carry through all
+// 2W^2 multiply-adds, ~2 dependent instructions and ~9 cycles a
+// multiply-add on the H100, ~3.5 instructions a multiply-add in all. Here
+// the product is scanned by columns (Montgomery's FIPS order) into a fresh
+// three-word accumulator a column, each multiply-add one PTX carry chain
+// (mad.lo.cc, madc.hi.cc, addc): ~2 SASS instructions a multiply-add. ptxas
+// keeps every instruction that touches the carry flag in program order, so
+// the columns do not overlap and a multiply-add still costs ~8 cycles of
+// latency (the same sums in plain C overlap but issue twice the
+// instructions, and measured slower; PERF.md). Only the column's carry-in,
+// the newest m's term and the next m = low word * qinv depend on the column
+// before. The same canonical result as mont_mul, bit for bit.
+
+// (c2:c1:c0) += x * y
+__device__ __forceinline__ void mac3(uint32_t& c0, uint32_t& c1,
+                                     uint32_t& c2, uint32_t x, uint32_t y) {
+#ifdef __CUDA_ARCH__
+  asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+      "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+      "addc.u32 %2, %2, 0;"
+      : "+r"(c0), "+r"(c1), "+r"(c2)
+      : "r"(x), "r"(y));
+#else
+  const uint64_t p = (uint64_t)x * y + c0;
+  const uint64_t s = (uint64_t)c1 + (p >> 32);
+  c0 = (uint32_t)p;
+  c1 = (uint32_t)s;
+  c2 += (uint32_t)(s >> 32);
+#endif
+}
+
+// (c2:c1:c0) += (y1:y0)
+__device__ __forceinline__ void add3(uint32_t& c0, uint32_t& c1,
+                                     uint32_t& c2, uint32_t y0,
+                                     uint32_t y1) {
+#ifdef __CUDA_ARCH__
+  asm("add.cc.u32 %0, %0, %3;\n\t"
+      "addc.cc.u32 %1, %1, %4;\n\t"
+      "addc.u32 %2, %2, 0;"
+      : "+r"(c0), "+r"(c1), "+r"(c2)
+      : "r"(y0), "r"(y1));
+#else
+  const uint64_t s0 = (uint64_t)c0 + y0;
+  const uint64_t s1 = (uint64_t)c1 + y1 + (s0 >> 32);
+  c0 = (uint32_t)s0;
+  c1 = (uint32_t)s1;
+  c2 += (uint32_t)(s1 >> 32);
+#endif
+}
+
+// Column C of mont_mul_ilp: its bounds are constants of the template, so
+// every loop unrolls and m stays in registers.
+template <int W, int C>
+__device__ __forceinline__ void ilp_column(const ElemT<W>& a,
+                                           const ElemT<W>& b,
+                                           const FieldConstT<W>& fc,
+                                           uint32_t (&m)[W], ElemT<W>& r,
+                                           uint32_t& cl, uint32_t& ch) {
+  constexpr int lo = C < W ? 0 : C - W + 1;
+  constexpr int hi = C < W ? C : W - 1;
+  // every m's term but the newest (m_(C-1) q_1), which ends the chain
+  constexpr int m_end = C < W ? C - 1 : W;
+  uint32_t d0 = 0, d1 = 0, d2 = 0;
+#pragma unroll
+  for (int k = lo; k <= hi; ++k) mac3(d0, d1, d2, a.w[k], b.w[C - k]);
+#pragma unroll
+  for (int k = lo; k < m_end; ++k) mac3(d0, d1, d2, m[k], fc.q[C - k]);
+  add3(d0, d1, d2, cl, ch);
+  if constexpr (C < W) {
+    if constexpr (C >= 1) mac3(d0, d1, d2, m[C - 1], fc.q[1]);
+    m[C] = d0 * fc.qinv;
+    mac3(d0, d1, d2, m[C], fc.q[0]);  // the low word becomes 0
+  } else {
+    r.w[C - W] = d0;
+  }
+  cl = d1;
+  ch = d2;
+}
+
+template <int W, int... C>
+__device__ __forceinline__ void ilp_columns(const ElemT<W>& a,
+                                            const ElemT<W>& b,
+                                            const FieldConstT<W>& fc,
+                                            uint32_t (&m)[W], ElemT<W>& r,
+                                            uint32_t& cl, uint32_t& ch,
+                                            std::integer_sequence<int, C...>) {
+  (ilp_column<W, C>(a, b, fc, m, r, cl, ch), ...);
+}
+
+// a * b * 2^(-32W) mod q by columns. Inputs < q; output canonical. A
+// column sums at most 2W products below 2^64 and a two-word carry, so three
+// words hold it.
+template <int W>
+__device__ __forceinline__ ElemT<W> mont_mul_ilp(const ElemT<W>& a,
+                                                 const ElemT<W>& b,
+                                                 const FieldConstT<W>& fc) {
+  uint32_t m[W];
+  ElemT<W> r;
+  uint32_t cl = 0, ch = 0;  // carry into the column: (ch:cl)
+  ilp_columns<W>(a, b, fc, m, r, cl, ch,
+                 std::make_integer_sequence<int, 2 * W - 1>{});
+  r.w[W - 1] = cl;
+  return reduce_once(r, ch, fc);
+}
+
+// Field constants that select mont_mul_ilp: a kernel whose cores take them
+// runs every product of those cores by columns; the other ops take them as
+// FieldConstT<W>.
+template <int W>
+struct IlpFieldConstT : FieldConstT<W> {};
+
+template <int W>
+inline IlpFieldConstT<W> ilp_field_const(const uint32_t* words) {
+  return {field_const<W>(words)};
+}
+
+template <int W>
+__device__ __forceinline__ ElemT<W> mont_mul(const ElemT<W>& a,
+                                             const ElemT<W>& b,
+                                             const IlpFieldConstT<W>& fc) {
+  return mont_mul_ilp(a, b, fc);
+}
+
+template <int W>
+__device__ __forceinline__ ElemT<W> sqr(const ElemT<W>& a,
+                                        const IlpFieldConstT<W>& fc) {
+  return mont_mul_ilp(a, a, fc);
 }
 
 // Host: f(std::integral_constant<int, W>{}) for the width n_words, one of

@@ -84,11 +84,13 @@ __device__ __forceinline__ ElemT<W> small_mul(const ElemT<W>& x,
 // v1 = a1 b1, re = v0 + NR v1, im = (a0 + a1)(b0 + b1) - v0 - v1. At
 // NR = -1 re is one subtraction; otherwise NR v1 is formed by small_mul and
 // subtracted (NR < 0) or added. Every op is canonical, so the result is the
-// unique residue and equals the plain version bit for bit.
-template <int W, int NR>
+// unique residue and equals the plain version bit for bit. FC is
+// FieldConstT<W> or IlpFieldConstT<W> (field.cuh), which picks the base
+// product.
+template <int W, int NR, class FC>
 __device__ __forceinline__ Elem2T<W, NR> mont_mul(const Elem2T<W, NR>& a,
                                                   const Elem2T<W, NR>& b,
-                                                  const FieldConstT<W>& fc) {
+                                                  const FC& fc) {
   const ElemT<W> v0 = mont_mul(a.c0, b.c0, fc);
   const ElemT<W> v1 = mont_mul(a.c1, b.c1, fc);
   const ElemT<W> t = mont_mul(add_mod(a.c0, a.c1, fc),
@@ -97,6 +99,124 @@ __device__ __forceinline__ Elem2T<W, NR> mont_mul(const Elem2T<W, NR>& a,
   const ElemT<W> nv1 = small_mul<K>(v1, fc);
   return {NR < 0 ? sub_mod(v0, nv1, fc) : add_mod(v0, nv1, fc),
           sub_mod(sub_mod(t, v0, fc), v1, fc)};
+}
+
+// a0 + NR a1 and the correction (1 + NR) v of the square's real part:
+// re = (a0 + a1)(a0 + NR a1) - (1 + NR) a0 a1 = a0^2 + NR a1^2.
+template <int W, int NR, class FC>
+__device__ __forceinline__ ElemT<W> plus_nr(const ElemT<W>& a0,
+                                            const ElemT<W>& a1,
+                                            const FC& fc) {
+  constexpr int K = NR < 0 ? -NR : NR;
+  const ElemT<W> k1 = small_mul<K>(a1, fc);
+  return NR < 0 ? sub_mod(a0, k1, fc) : add_mod(a0, k1, fc);
+}
+
+// u - (1 + NR) v: at NR = -1 just u; below, u + (-1 - NR) v.
+template <int W, int NR, class FC>
+__device__ __forceinline__ ElemT<W> minus_1nr(const ElemT<W>& u,
+                                              const ElemT<W>& v,
+                                              const FC& fc) {
+  static_assert(NR >= -16 && NR <= 14, "1 + NR in small_mul's range");
+  constexpr int K = NR < -1 ? -1 - NR : 1 + NR;
+  if constexpr (NR == -1) {
+    return u;
+  } else {
+    const ElemT<W> kv = small_mul<K>(v, fc);
+    return NR < -1 ? add_mod(u, kv, fc) : sub_mod(u, kv, fc);
+  }
+}
+
+// The square in 2 base products: with v = a0 a1, im = 2v and
+// re = (a0 + a1)(a0 + NR a1) - (1 + NR) v; at NR = -1 re is
+// (a0 + a1)(a0 - a1), at NR = -5 (a0 + a1)(a0 - 5 a1) + 4v. Canonical, so
+// it equals mont_mul(a, a) bit for bit.
+template <int W, int NR, class FC>
+__device__ __forceinline__ Elem2T<W, NR> sqr(const Elem2T<W, NR>& a,
+                                             const FC& fc) {
+  const ElemT<W> v = mont_mul(a.c0, a.c1, fc);
+  const ElemT<W> u = mont_mul(add_mod(a.c0, a.c1, fc),
+                              plus_nr<W, NR>(a.c0, a.c1, fc), fc);
+  return {minus_1nr<W, NR>(u, v, fc), add_mod(v, v, fc)};
+}
+
+// One thread's half of an Fp2 element, for kernels that give each element
+// a pair of neighbouring threads: the even lane holds re, the odd lane im,
+// and the partner's half comes by one __shfl_xor_sync(..., 1) a word. A
+// product is schoolbook, 2 base products a lane (re: a0 b0 + NR a1 b1;
+// im: a1 b0 + a0 b1); a square 1 (re: (a0 + a1)(a0 + NR a1), corrected
+// by (1 + NR) a0 a1 from the im lane where NR != -1; im: a0 a1, doubled).
+// Both lanes run the same instructions and pick by parity, so a warp never
+// diverges; every lane of the warp must run them (no early exit).
+template <int W, int NR>
+struct Half2T {
+  ElemT<W> c;  // re on the even lane, im on the odd one
+};
+
+__device__ __forceinline__ bool odd_lane() { return threadIdx.x & 1u; }
+
+template <int W>
+__device__ __forceinline__ ElemT<W> partner(const ElemT<W>& a) {
+  ElemT<W> p;
+#pragma unroll
+  for (int i = 0; i < W; ++i) p.w[i] = __shfl_xor_sync(0xffffffffu, a.w[i], 1);
+  return p;
+}
+
+template <int W>
+__device__ __forceinline__ ElemT<W> pick(bool c, const ElemT<W>& a,
+                                         const ElemT<W>& b) {
+  ElemT<W> r;
+#pragma unroll
+  for (int i = 0; i < W; ++i) r.w[i] = c ? a.w[i] : b.w[i];
+  return r;
+}
+
+template <int W, int NR, class FC>
+__device__ __forceinline__ Half2T<W, NR> add_mod(const Half2T<W, NR>& a,
+                                                 const Half2T<W, NR>& b,
+                                                 const FC& fc) {
+  return {add_mod(a.c, b.c, fc)};
+}
+
+template <int W, int NR, class FC>
+__device__ __forceinline__ Half2T<W, NR> sub_mod(const Half2T<W, NR>& a,
+                                                 const Half2T<W, NR>& b,
+                                                 const FC& fc) {
+  return {sub_mod(a.c, b.c, fc)};
+}
+
+template <int W, int NR, class FC>
+__device__ __forceinline__ Half2T<W, NR> mont_mul(const Half2T<W, NR>& a,
+                                                  const Half2T<W, NR>& b,
+                                                  const FC& fc) {
+  const bool im = odd_lane();
+  const ElemT<W> pa = partner(a.c), pb = partner(b.c);
+  const ElemT<W> p1 = mont_mul(a.c, pick(im, pb, b.c), fc);
+  const ElemT<W> p2 = mont_mul(pa, pick(im, b.c, pb), fc);
+  constexpr int K = NR < 0 ? -NR : NR;
+  const ElemT<W> t = pick(im, p2, small_mul<K>(p2, fc));
+  if constexpr (NR < 0) {
+    return {pick(im, add_mod(p1, t, fc), sub_mod(p1, t, fc))};
+  } else {
+    return {add_mod(p1, t, fc)};
+  }
+}
+
+template <int W, int NR, class FC>
+__device__ __forceinline__ Half2T<W, NR> sqr(const Half2T<W, NR>& a,
+                                             const FC& fc) {
+  const bool im = odd_lane();
+  const ElemT<W> pa = partner(a.c);
+  const ElemT<W> a0 = pick(im, pa, a.c), a1 = pick(im, a.c, pa);
+  const ElemT<W> p = mont_mul(pick(im, a1, add_mod(a0, a1, fc)),
+                              pick(im, a0, plus_nr<W, NR>(a0, a1, fc)), fc);
+  const ElemT<W> twice = add_mod(p, p, fc);
+  if constexpr (NR == -1) {
+    return {pick(im, twice, p)};
+  } else {
+    return {pick(im, twice, minus_1nr<W, NR>(p, partner(p), fc))};
+  }
 }
 
 // Host: f(std::integral_constant<int, W>{}, std::integral_constant<int,

@@ -68,22 +68,23 @@ __device__ __forceinline__ E dbl_mod(const E& a, const FC& fc) {
 
 // dbl-2009-l (a = 0) / dbl-2007-bl (reference g1.go:397 DoubleAssign), as
 // `_dbl_core`. Infinity needs no mask: Z3 = 2*Y1*Z1 = 0 when Z1 = 0.
-// 7 products, 10 when a != 0.
+// 7 products, 10 when a != 0; of them 5 (7) squares, which `sqr` runs in 2
+// base products over Fp2 (fp2.cuh) and as one product over Fp. No branch,
+// so a pair of threads sharing a point (Half2T) never diverges.
 template <bool A_ZERO, class E, class FC>
 __device__ __forceinline__ JacT<E> jac_double(const JacT<E>& p, const FC& fc,
                                               const CurveConstT<E>& cc) {
-  const E A = mont_mul(p.x, p.x, fc);
-  const E B = mont_mul(p.y, p.y, fc);
-  const E C = mont_mul(B, B, fc);
-  E t = add_mod(p.x, B, fc);
-  t = mont_mul(t, t, fc);
+  const E A = sqr(p.x, fc);
+  const E B = sqr(p.y, fc);
+  const E C = sqr(B, fc);
+  const E t = sqr(add_mod(p.x, B, fc), fc);
   const E D = dbl_mod(sub_mod(sub_mod(t, A, fc), C, fc), fc);
   E e = add_mod(dbl_mod(A, fc), A, fc);
-  if (!A_ZERO) {
-    const E z2 = mont_mul(p.z, p.z, fc);
-    e = add_mod(e, mont_mul(mont_mul(z2, z2, fc), cc.a, fc), fc);
+  if constexpr (!A_ZERO) {
+    const E z2 = sqr(p.z, fc);
+    e = add_mod(e, mont_mul(sqr(z2, fc), cc.a, fc), fc);
   }
-  const E F = mont_mul(e, e, fc);
+  const E F = sqr(e, fc);
   JacT<E> r;
   r.x = sub_mod(F, dbl_mod(D, fc), fc);
   r.y = sub_mod(mont_mul(e, sub_mod(D, r.x, fc), fc),

@@ -3,11 +3,16 @@
 ``exp_const(spec, x, e)`` on an ``(N, W)`` int32 word tensor returns x^e
 (Montgomery in and out) for a Python-int exponent e >= 0; 0^e = 0 for
 e > 0, so e = q - 2 is the Fermat inverse with 0 -> 0. A CUDA tensor goes
-to ``csrc/exp.cu`` (W = 8 or 12 words; one thread per element runs the
-whole MSB-first square-and-multiply ladder), a CPU tensor to
-:func:`exp_const_plain`, the same ladder on :func:`mont_mul_plain`. Both
-return canonical residues, so they agree bit for bit. There is no size
-threshold: the kernel serves any batch.
+to ``csrc/exp.cu`` (W = 8 or 12 words), a CPU tensor to
+:func:`exp_const_plain`, the MSB-first ladder on :func:`mont_mul_plain`.
+Both return canonical residues, so they agree bit for bit. There is no size
+threshold: the kernel serves any batch, in one launch.
+
+The kernel runs the ladder right to left, so that its only dependent chain
+is the squares (nbits - 1 of them), and its multiplies trail on warps of
+their own; ``csrc/exp.cu`` fixes the product (one lane and the column
+product at 8 words, a team of 4 lanes at 12) from the sweep of
+``tools/exp_dbl2_sweep.py`` on the H100.
 
 Replaces the Pallas kernels ``gnark_crypto_tpu/field/pallas/exp.py``
 ``exp_const_pallas`` and ``inverse_small``.
@@ -16,6 +21,7 @@ Replaces the Pallas kernels ``gnark_crypto_tpu/field/pallas/exp.py``
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,11 +48,14 @@ def exp_const_plain(spec: FieldSpec, x: torch.Tensor, e: int
     return res
 
 
+@functools.lru_cache(maxsize=256)
 def exponent_words(spec: FieldSpec, e: int) -> tuple[tuple[int, ...], int]:
-    """(W words, bit length) of the exponent the kernel runs for x^e, e >= 0.
+    """(W words, bit length) of the exponent the kernel runs for x^e, e >= 0,
+    cached per (spec, e).
 
     The kernel takes W-word exponents: for e >= 2^(32W), x^e = x^e' with
-    e' in [1, q-1], e' = e mod (q-1), for x != 0, and 0 = 0^e' for x = 0."""
+    e' in [1, q-1], e' = e mod (q-1), for x != 0, and 0 = 0^e' for x = 0.
+    It reads bit b of the words at step b of its right-to-left ladder."""
     if e >> (32 * spec.n_words):
         e = (e - 1) % (spec.modulus - 1) + 1
     return tuple(int_to_words(e, spec.n_words)), e.bit_length()

@@ -851,3 +851,65 @@ def test_sis_on_card_equals_cpu(cuda, name):
     vs = torch.stack([v[:1000], v[1000:2000], v[2000:3000]])
     assert torch.equal(on_card.hash_many(vs.to(cuda)).cpu(),
                        on_cpu.hash_many(vs))
+
+
+# -- the redesigned exp_const and jac_double2 -----------------------------------
+
+EXP_FIELDS = [fs.BN254_FP, fs.BLS12_381_FP, fs.BLS12_377_FP]
+
+
+def exp_inputs(spec, n, seed, cuda):
+    """n canonical Montgomery values, 0 and 1 among them."""
+    q = spec.modulus
+    rng = random.Random(seed)
+    vals = ([0, 1, q - 1] + [rng.randrange(q) for _ in range(n)])[:n]
+    return mont.from_int(spec, vals, device=cuda)
+
+
+def exps(spec):
+    q, W = spec.modulus, spec.n_words
+    return [0, 1, 2, q - 2, (q - 1) // 2, (q + 1) // 4,
+            (spec.t_odd - 1) // 2, (1 << (32 * W)) + 12345]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", EXP_FIELDS, ids=lambda s: s.name)
+def test_exp_const_right_to_left_every_exponent(cuda, spec):
+    x = exp_inputs(spec, 129, 17, cuda)
+    by_width = exp.exp_const.launches_by_width
+    for e in exps(spec):
+        before = by_width.get(spec.n_words, 0)
+        got = exp.exp_const(spec, x, e)
+        assert by_width[spec.n_words] == before + 1
+        assert torch.equal(got, exp.exp_const_plain(spec, x, e)), e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", EXP_FIELDS, ids=lambda s: s.name)
+def test_exp_const_batches_and_designs(cuda, spec):
+    """Batches 1, 31, 128, 129, 4096 at e = q - 2 in the design that
+    csrc/exp.cu fixes for the width (the blocks' ragged edges)."""
+    e = spec.modulus - 2
+    x = exp_inputs(spec, 4096, 19, cuda)
+    want = exp.exp_const_plain(spec, x, e)
+    for n in (1, 31, 128, 129, 4096):
+        assert torch.equal(exp.exp_const(spec, x[:n], e), want[:n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", G2_CURVES)
+def test_jac_double2_designs_match_plain(cuda, name):
+    """The double in the design that csrc/point_add2.cu fixes for the
+    (words, u^2) pair (a thread pair at (12, -1)) on odd n, n = 1 and Z = 0
+    lanes."""
+    from gnark_crypto_tpu_torch.field import point_add2
+
+    g2 = g2_curve(name, cuda)
+    fp, nr = g2.spec.fp, g2.fp.nr
+    P, _ = g2_edge_batches(g2, 515, 9, cuda)
+    assert bool(torch.all(P.z == 0, -1).all(-1).any())
+    want = point_add2.jac_double2_plain(fp, nr, *P)
+    for n in (515, 1):
+        Pn = [c[:n].contiguous() for c in P]
+        got = point_add2.jac_double2(fp, nr, *Pn)
+        assert all(torch.equal(k, w[:n]) for k, w in zip(got, want)), n
