@@ -50,7 +50,17 @@ the same card, bit for bit (the field is exact: the tolerance is 0):
   against the golden bytes, with Q_i = [b_i]G2 by the G2 ``scalar_mul``
   on the card (sampled lanes and a few [k]G2 against a Python-int Fp2
   ladder); the G2 MSM as for bn254 at 2^16 and 2^20; KZG as for bn254,
-  bls12-381 at 4096 (a blob) and bls12-377 at 2^20.
+  bls12-381 at 4096 (a blob) and bls12-377 at 2^20;
+* bls24-315 and bls24-317 (10-word Fp, the 10-word instantiations of the
+  field, exponent, G1 point and VM kernels; G2 over E4 composed of field
+  ops, its products on the 10-word ``mont_mul``): the G1 MSM at 2^12,
+  2^16 and 2^20 with ``batch_scalar_mul`` at 2^16; the pairing as for
+  bls12 at 2048 pairs, tampered, at batch 2 and against the golden bytes,
+  Q_i = [b_i]G2 by the E4 ``scalar_mul`` on the card (sampled lanes, b =
+  2, 3, r - 1, 1 and 7 among them, against a Python-int Fp4 ladder); KZG
+  as for bn254, bls24-315
+  (the inner curve of gnark's 2-chain with bw6-633) at 2^20 and bls24-317
+  at 2^16.
 
 Phases:
 
@@ -66,10 +76,10 @@ Phases:
    pairing against the golden bytes or its expected check; the wave VM
    kernel on the 2048-pair chain's ``product`` launch and on two random
    programs of all six ops, scheduled into waves of 8 and (with a wide
-   operand window) 16 rows (for bls12 at 12 words, with ``mont_mul`` on
-   the widest 12-word product of the MSM path); the five Fp2 kernels on
-   the inputs they received in a second 2^16 G2 MSM (the fold on its first 4
-   windows), on each of the three curves; the KZG results
+   operand window) 16 rows (for bls24 at 10 words and bls12 at 12, with
+   ``mont_mul`` on the widest product of their MSM paths); the five Fp2
+   kernels on the inputs they received in a second 2^16 G2 MSM (the fold
+   on its first 4 windows), on each of the three curves; the KZG results
    against alpha-oracle points and their expected verdicts; the four
    small-field kernels (both forms of ``ntt_f31_stage``) on every distinct
    call of the small-field path, each small-field transform against its
@@ -79,18 +89,20 @@ Phases:
    (bytes over 3.35 TB/s, or 32-bit multiply-adds over the INT32 rate,
    whichever is larger); whole transforms; the G1 and G2 MSMs at 2^20
    split into their steps (host clock, synchronised after each); each VM
-   program launch of the pairing path beside its waves, warps, registers
-   and longest chain of dependent rows;
+   program launch of the pairing path beside its waves, warps, registers,
+   the scheduler's look-ahead window and longest chain of dependent rows;
    pairs/s at 2048 and the batch-2 ``pairing_check`` latency; each G2 MSM
    and KZG call (host clock, synchronised); the small-field transforms'
    elems/s, SIS elems/s and ``hash_many`` columns/s.
 
-Prints the card's name and power limit, the build time, a ``timings`` JSON
-line, a ``kernels`` JSON line (a kernel built at 8 and 12 words has a row
-per width, the 12-word one named with ``_w12``; its numbers from the
-bls12-381 paths, bls12-377's in the timings line) and, last, the device
-line. Exits non-zero,
-with no result, without a CUDA card or without the package beside it.
+Prints the card's name and power limit, the build time, the launches of
+every path, the number of checks and the run's seconds, a ``timings`` JSON
+line, a ``kernels`` JSON line (a kernel built at several widths has a row
+per width, the 10-word one named with ``_w10`` and the 12-word one with
+``_w12``; their numbers from the bls24-315 and bls12-381 paths, bls24-317's
+and bls12-377's in the timings line) and, last, the device line. Exits
+non-zero, with no result, without a CUDA card or without the package
+beside it.
 """
 
 from __future__ import annotations
@@ -117,6 +129,13 @@ W12_KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double",
                "vm_execute", "jac_add2", "jac_double2", "affine_prep2",
                "affine_finish2", "jac_fold_windows2")
 W12 = "_w12"
+# the kernels built at 10 words too (not the Fp2 ones: bls24's G2 is over
+# Fp4); their 10-word rows are named with W10
+W10_KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double",
+               "affine_prep", "affine_finish", "jac_fold_windows",
+               "vm_execute")
+W10 = "_w10"
+SUFFIX = {8: "", 10: W10, 12: W12}
 
 
 def mads_per_product(words: int) -> int:
@@ -128,7 +147,7 @@ def mads_per_product(words: int) -> int:
 def exp_design(words: int) -> str:
     """exp_const's design at a width, as csrc/exp.cu fixes it (kTeam,
     kLanes)."""
-    team = {8: 1, 12: 4}[words]
+    team = {8: 1, 10: 4, 12: 4}[words]
     product = "the column product" if team == 1 else "a team product"
     return (f"right to left, T={team} lanes an element ({product}), the "
             "multiplies on warps of their own, 32 lanes a role")
@@ -144,10 +163,12 @@ def dbl2_design(words: int, nr: int) -> str:
 
 
 FAILURES: list[str] = []
+CHECKS: list[str] = []
 
 
 def check(ok: bool, what: str) -> None:
     print(f"{'ok  ' if ok else 'FAIL'} {what}", flush=True)
+    CHECKS.append(what)
     if not ok:
         FAILURES.append(what)
 
@@ -263,9 +284,10 @@ class Recorder:
 
 class MsmSlice:
     """A G1 MSM path: inputs, main path, checks and timings. bn254 (8
-    words) with a stark_g1 MSM beside it (a != 0), or a bls12 curve (12-word
-    Fp), whose kernel rows are the 12-word instantiations (``W12``) and
-    which also records and checks ``mont_mul``."""
+    words) with a stark_g1 MSM beside it (a != 0), or a bls24 curve (10-word
+    Fp) or a bls12 curve (12-word Fp), whose kernel rows are the 10- or
+    12-word instantiations (``W10``, ``W12``) and which also records and
+    checks ``mont_mul``."""
 
     KERNELS = ("exp_const", "jac_add", "jac_double", "affine_prep",
                "affine_finish", "jac_fold_windows")
@@ -287,7 +309,7 @@ class MsmSlice:
         self.spec = cs.get_curve(name)
         self.curve = curve_ops(self.spec)
         self.W = self.spec.fp.n_words
-        self.suffix = "" if self.W == 8 else W12
+        self.suffix = SUFFIX[self.W]
         self.tag = "" if self.W == 8 else f"{self.spec.name} "
         self.stark = cs.get_curve("stark_g1") if stark_log else None
         kernel_names = self.KERNELS + (("mont_mul",) if self.W != 8 else ())
@@ -701,7 +723,7 @@ class PairingSlice:
                            device=self.dev)
         n = len(ks)
         return g2.to_affine(g2.scalar_mul(
-            type(Q)(*(c.expand(n, -1, -1) for c in Q)), s))
+            type(Q)(*(c.expand(n, *c.shape) for c in Q)), s))
 
     def gt_hex(self, z) -> str:
         from gnark_crypto_tpu_torch.io import gt_bytes
@@ -736,6 +758,7 @@ class PairingSlice:
         def rows(pt, i, j):
             return type(pt)(*(c[i:j] for c in pt))
 
+        self.Q_all = Q_all
         self.P, self.Q = rows(P_all, 0, n), rows(Q_all, 0, n)
         P2, Q2 = rows(P_all, n, n + 2), rows(Q_all, n, n + 2)
         self.gt = {key: api.pair(name, rows(P_all, i, i + 1),
@@ -836,6 +859,7 @@ class PairingSlice:
                    "products": n_mul,
                    "rows": prog.n_instrs - prog.op_counts()["NOP"],
                    "waves": prog.n_waves, "warps": prog.warps,
+                   "window": prog.window,
                    "us_per_wave": ms * 1e3 / prog.n_waves,
                    "longest_chain": chain, "longest_chain_products": chain_mul,
                    "registers": prog.n_regs, "lanes": lanes,
@@ -950,6 +974,115 @@ class Bls12PairingSlice(PairingSlice):
         check(got == [fp2_oracle_mul(g, k, p, self.nr) for k in ks],
               f"{name} G2 scalar_mul on the card, k = 1, 2, 3, r - 1 and a "
               "random k, == Python-int ladder")
+
+
+def fp4_oracle(name: str):
+    """Python-int G2 arithmetic of a bls24 curve: affine addition and the
+    double-and-add ladder over Fp4 = Fp2[v]/(v^2 - v_sq), Fp2 =
+    Fp[u]/(u^2 - beta), the tower's parameters (``towers/tower24.py``); an
+    element is ((a, b), (c, d)), None is infinity."""
+    from gnark_crypto_tpu_torch.towers.tower24 import TOWER24_PARAMS
+
+    spec, beta, v_sq = TOWER24_PARAMS[name]
+    p = spec.modulus
+
+    def m2(x, y):
+        return ((x[0] * y[0] + beta * x[1] * y[1]) % p,
+                (x[0] * y[1] + x[1] * y[0]) % p)
+
+    def a2(x, y):
+        return ((x[0] + y[0]) % p, (x[1] + y[1]) % p)
+
+    def s2(x, y):
+        return ((x[0] - y[0]) % p, (x[1] - y[1]) % p)
+
+    def mul(x, y):
+        return (a2(m2(x[0], y[0]), m2(v_sq, m2(x[1], y[1]))),
+                a2(m2(x[0], y[1]), m2(x[1], y[0])))
+
+    def sub(x, y):
+        return (s2(x[0], y[0]), s2(x[1], y[1]))
+
+    def inv(x):
+        n = s2(m2(x[0], x[0]), m2(v_sq, m2(x[1], x[1])))
+        d = pow((n[0] * n[0] - beta * n[1] * n[1]) % p, -1, p)
+        ni = (n[0] * d % p, -n[1] * d % p)
+        return (m2(x[0], ni), s2((0, 0), m2(x[1], ni)))
+
+    def small(k):
+        return ((k % p, 0), (0, 0))
+
+    def add(P, Q):
+        if P is None or Q is None:
+            return Q if P is None else P
+        (x1, y1), (x2, y2) = P, Q
+        if x1 == x2 and sub(small(0), y1) == y2:
+            return None
+        if P == Q:
+            lam = mul(mul(small(3), mul(x1, x1)), inv(mul(small(2), y1)))
+        else:
+            lam = mul(sub(y2, y1), inv(sub(x2, x1)))
+        x3 = sub(sub(mul(lam, lam), x1), x2)
+        return x3, sub(mul(lam, sub(x1, x3)), y1)
+
+    def ladder(P, k: int):
+        acc = None
+        while k:
+            if k & 1:
+                acc = add(acc, P)
+            P = add(P, P)
+            k >>= 1
+        return acc
+
+    return ladder
+
+
+def g4_affine_ints(g2, pt):
+    """Affine G2 points over E4 -> (((x.a, x.b), (x.c, x.d)), (y ...))
+    canonical ints per point."""
+    coords = []
+    for c in pt:
+        halves = [list(zip(*g2.fp.base.to_int(g2.fp.coeff(c, i))))
+                  for i in range(2)]
+        coords.append(list(zip(*halves)))
+    return list(zip(*coords))
+
+
+class Bls24PairingSlice(PairingSlice):
+    """A bls24 pairing path (10-word Fp, the 10-word VM kernel; E24 GT,
+    the programs 2-6x a bls12 program's rows): 2048 pairs P_i = [a_i]G1 by
+    batch_scalar_mul on the 10-word point kernels and Q_i = [b_i]G2 by the
+    G2 scalar_mul over E4, composed of field ops (its products on the
+    10-word ``mont_mul``), with b = 2, 3 and r - 1 in the first lanes;
+    sampled Q_i are held against a Python-int Fp4 ladder. The E4 ladder
+    costs ~0.15 s a bit on the card whatever the lanes, so the edge
+    scalars ride in the path's one ladder, not in a ladder of their own."""
+
+    SUFFIX = W10
+    KERNELS = ("vm_execute", "mont_mul", "exp_const", "jac_add",
+               "jac_double")
+
+    def __init__(self, dev, nprng, name: str, n: int = 2048):
+        self.NAME = name
+        super().__init__(dev, nprng, n)
+        self.oracle = fp4_oracle(name)
+
+    def g2_scalars(self, rng, n: int) -> list[int]:
+        return [2, 3, self.r - 1] + super().g2_scalars(rng, n - 3)
+
+    def checks(self, compare, check):
+        super().checks(compare, check)
+        g2, name, n = self.g2, self.NAME, self.n
+        spec = g2.spec
+        g = (spec.gx, spec.gy)
+        # b = 2, 3, r - 1, random, ..., 1 (the lane that cancels the rest),
+        # then the batch-2 and golden lanes' kb, 1 and 7
+        lanes = [0, 1, 2, 3, n // 2, n - 2, n - 1, n, n + 2, n + 3]
+        Q = self.Q_all
+        got = g4_affine_ints(g2, type(Q)(*(c[lanes] for c in Q)))
+        check(got == [self.oracle(g, self.b[i]) for i in lanes],
+              f"{name} G2 (E4) scalar_mul on the card at lanes {lanes} (k = "
+              "2, 3, r - 1, 1, 7 and random) == Python-int Fp4 ladder")
 
 
 class G2MsmSlice:
@@ -1204,7 +1337,9 @@ class KzgSlice:
     """KZG end to end on one curve: SRS, commit, open, verify and the batch
     forms, held against alpha-oracle points and tampered inputs. bn254, or a
     bls12 curve, whose G1 and G2 kernels are the 12-word instantiations
-    (``W12``) and whose Fr products stay at 8 words."""
+    (``W12``), or a bls24 curve, whose G1 kernels are the 10-word ones
+    (``W10``) and whose G2 over E4 is composed of 10-word products; the Fr
+    products stay at 8 words."""
 
     KERNELS = ("exp_const", "jac_add", "jac_double", "affine_prep",
                "affine_finish", "jac_fold_windows", "vm_execute", "jac_add2",
@@ -1226,9 +1361,14 @@ class KzgSlice:
         self.r = self.g1.spec.fr.modulus
         self.n = 1 << log_n
         self.wall = {}
-        suffix = "" if self.g1.spec.fp.n_words == 8 else W12
+        W = self.g1.spec.fp.n_words
+        self.e4 = name.startswith("bls24")
+        kernels = self.KERNELS
+        if self.e4:   # G2 over E4: field ops, its products on mont_mul
+            kernels = tuple(k for k in kernels
+                            if not k.endswith("2")) + ("mont_mul",)
         # Fr (8 words on every curve here) through mont_mul
-        self.kernels = ("mont_mul",) + tuple(k + suffix for k in self.KERNELS)
+        self.kernels = ("mont_mul",) + tuple(k + SUFFIX[W] for k in kernels)
 
     def timed(self, label, fn):
         self.torch.cuda.synchronize()
@@ -1332,10 +1472,16 @@ class KzgSlice:
               == self.g1_ints(self.g1_mul([pow(alpha, i, r) for i in lanes])),
               f"kzg {name}: SRS [alpha^i]G1 at lanes {lanes}")
         spec2 = self.g2.spec
-        check(g2_affine_ints(self.g2, self.srs.vk.alpha_g2)
-              == [fp2_oracle_mul((tuple(spec2.gx), tuple(spec2.gy)), alpha,
-                                 spec2.fp.modulus, self.g2.fp.nr)],
-              f"kzg {name}: SRS [alpha]G2 == Python-int Fp2 ladder")
+        if self.e4:
+            check(g4_affine_ints(self.g2, self.srs.vk.alpha_g2)
+                  == [fp4_oracle(self.NAME)((spec2.gx, spec2.gy), alpha)],
+                  f"kzg {name}: SRS [alpha]G2 == Python-int Fp4 ladder")
+        else:
+            check(g2_affine_ints(self.g2, self.srs.vk.alpha_g2)
+                  == [fp2_oracle_mul((tuple(spec2.gx), tuple(spec2.gy)),
+                                     alpha, spec2.fp.modulus,
+                                     self.g2.fp.nr)],
+                  f"kzg {name}: SRS [alpha]G2 == Python-int Fp2 ladder")
         check(self.g1_ints(self.C) == self.g1_ints(self.g1_mul([p_alpha])),
               f"kzg {name}: commit == [p(alpha)]G1")
         check(mont.to_int(self.g1.spec.fr, self.proof.claimed_value,
@@ -1682,7 +1828,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     build_dir = build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s ({build_dir})",
           flush=True)
@@ -1719,6 +1865,17 @@ def main() -> int:
     bls_g2 = [G2MsmSlice(dev, bls_rng, c) for c in ("bls12_381", "bls12_377")]
     bls_kzg = [KzgSlice(dev, bls_rng, "bls12_381", log_n=12),
                KzgSlice(dev, bls_rng, "bls12_377", log_n=20)]
+    # bls24-315 and bls24-317 at 10-word Fp: the G1 MSM at 2^12, 2^16 and
+    # 2^20, the pairing (G2 over E4, composed of 10-word products), and
+    # KZG: bls24-315 (the inner curve of gnark's 2-chain with bw6-633) at
+    # 2^20, bls24-317 at 2^16
+    bls24_rng = np.random.default_rng(SEED + 24)
+    bls24 = ("bls24_315", "bls24_317")
+    bls24_msm = [MsmSlice(dev, bls24_rng, sizes=(12, 16, 20), stark_log=None,
+                          name=f"{c}_g1") for c in bls24]
+    bls24_pair = [Bls24PairingSlice(dev, bls24_rng, c) for c in bls24]
+    bls24_kzg = [KzgSlice(dev, bls24_rng, "bls24_315", log_n=20),
+                 KzgSlice(dev, bls24_rng, "bls24_317", log_n=16)]
     ntt_kernels = ("mont_mul", "ntt_radix2_stage", "ntt_radix2_block",
                    "ntt_four_step")
     wrappers = {"mont_mul": kernels.mont_mul,
@@ -1729,14 +1886,16 @@ def main() -> int:
                 **small.wrappers}
 
     def read_counts() -> dict:
-        """{kernel row: launches}: a kernel built at 8 and 12 words counts
-        its 8-word launches under its name and its 12-word ones under
-        name + W12."""
+        """{kernel row: launches}: a kernel built at 8, 10 and 12 words
+        counts its 8-word launches under its name and its 10- and 12-word
+        ones under name + W10 and name + W12."""
         counts = {}
         for name, w in wrappers.items():
             if name in W12_KERNELS:
                 counts[name] = w.launches_by_width.get(8, 0)
                 counts[name + W12] = w.launches_by_width.get(12, 0)
+                if name in W10_KERNELS:
+                    counts[name + W10] = w.launches_by_width.get(10, 0)
             else:
                 counts[name] = w.launches
         return counts
@@ -1805,14 +1964,29 @@ def main() -> int:
                    for sl in bls_g2]
     bls_counts += [drive(f"{sl.NAME} KZG", sl.main_path, sl.kernels)
                    for sl in bls_kzg]
+    bls24_counts = [drive(f"{sl.spec.name} MSM", sl.main_path, sl.kernels)
+                    for sl in bls24_msm]
+    bls24_counts += [drive(f"{sl.NAME} pairing", sl.main_path, sl.kernels)
+                     for sl in bls24_pair]
+    bls24_counts += [drive(f"{sl.NAME} KZG", sl.main_path, sl.kernels)
+                     for sl in bls24_kzg]
     path_counts = (ntt_counts, msm_counts, pair_counts, g2_counts,
-                   kzg_counts, small_counts, *bls_counts)
-    row_names = list(wrappers) + [k + W12 for k in W12_KERNELS]
+                   kzg_counts, small_counts, *bls_counts, *bls24_counts)
+    row_names = (list(wrappers) + [k + W12 for k in W12_KERNELS]
+                 + [k + W10 for k in W10_KERNELS])
     launches = {name: sum(c[name] for c in path_counts)
                 for name in row_names}
     for name in W12_KERNELS:
         check(launches[name + W12] > 0, f"{name} launched at 12 words on "
               f"the bls12 paths ({launches[name + W12]})")
+    for name in W10_KERNELS:
+        check(sum(c[name + W10] for c in bls24_counts) > 0,
+              f"{name} launched at 10 words on the bls24 paths "
+              f"({launches[name + W10]})")
+    print("launches by path: " + json.dumps(
+        {"ntt": ntt_counts, "msm": msm_counts, "pairing": pair_counts,
+         "g2_msm": g2_counts, "kzg": kzg_counts, "small": small_counts,
+         "bls12": bls_counts, "bls24": bls24_counts}), flush=True)
 
     # ---------------------------------------------------------------- phase 2
     err = {name: 0 for name in row_names}
@@ -1921,7 +2095,8 @@ def main() -> int:
     g2msm.checks(compare, check)
     kzg.checks(compare, check)
     small.checks(compare, check)
-    for sl in (*bls_msm, *bls_pair, *bls_g2, *bls_kzg):
+    for sl in (*bls_msm, *bls_pair, *bls_g2, *bls_kzg, *bls24_msm,
+               *bls24_pair, *bls24_kzg):
         sl.checks(compare, check)
 
     # ---------------------------------------------------------------- phase 3
@@ -2027,6 +2202,11 @@ def main() -> int:
                      (bls_g2[0], kernel_rows), (bls_g2[1], {}),
                      (bls_kzg[0], {}), (bls_kzg[1], {})):
         sl.timings(cuda_ms, timings, into)
+    # the 10-word rows from bls24-315; bls24-317's in the timings line
+    for sl, into in ((bls24_msm[0], kernel_rows), (bls24_msm[1], {}),
+                     (bls24_pair[0], kernel_rows), (bls24_pair[1], {}),
+                     (bls24_kzg[0], {}), (bls24_kzg[1], {})):
+        sl.timings(cuda_ms, timings, into)
 
     kernel_line = []
     sources = {
@@ -2067,7 +2247,7 @@ def main() -> int:
     }
     for name in row_names:
         r = kernel_rows[name]
-        base = name.removesuffix(W12)
+        base = name.removesuffix(W12).removesuffix(W10)
         kernel_line.append({
             "name": name, "route": "cuda", "source": sources[base][0],
             "replaces": sources[base][1], "launches": launches[name],
@@ -2075,6 +2255,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             **({"design": r["design"]} if "design" in r else {})})
+    print(f"chip_smoke: {len(CHECKS)} checks, {len(FAILURES)} failed, "
+          f"{time.perf_counter() - t_run:.2f} s in all (build included)",
+          flush=True)
     print(json.dumps({"timings": timings}), flush=True)
     print(json.dumps({"kernels": kernel_line}), flush=True)
 

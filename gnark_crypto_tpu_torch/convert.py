@@ -7,14 +7,16 @@ through canonical integers: limb arrays are never compared or copied
 across. Inputs are reduced mod q, because JAX limb arrays may hold
 non-canonical values (any 12-bit limbs, up to 2^264 for bn254).
 
-Extension elements (E2, E6, E12 of ``towers/``) cross as they are: the
-limb or word axis is last in both packages and the coefficient axes before
-it agree, so :func:`from_jax_limbs` and :func:`to_jax_limbs` convert every
-coefficient of any leading shape. A ``Domain`` crosses as gnark bytes:
-``ntt.domain.domain_from_bytes`` reads what the JAX ``Domain.to_bytes``
-writes, and the reverse. A curve point, G1 or G2, crosses coordinate by
-coordinate (:func:`point_from_jax`, :func:`point_to_jax`); scalars cross
-with ``mont_form=False``.
+Extension elements (E2, E6, E12 of ``towers/tower12.py``; E4, E12 and E24
+of ``towers/tower24.py``) cross as they are: the limb or word axis is last
+in both packages and the coefficient axes before it agree, so
+:func:`from_jax_limbs` and :func:`to_jax_limbs` convert every coefficient
+of any leading shape (a BLS24 GT element is (..., 2, 3, 2, 2, L) on one
+side and (..., 2, 3, 2, 2, W) on the other). A ``Domain`` crosses as
+gnark bytes: ``ntt.domain.domain_from_bytes`` reads what the JAX
+``Domain.to_bytes`` writes, and the reverse. A curve point, G1 or G2 (over E2, or E4 for
+BLS24), crosses coordinate by coordinate (:func:`point_from_jax`,
+:func:`point_to_jax`); scalars cross with ``mont_form=False``.
 
 The small fields use the same R on both sides (2^32 for koalabear and
 babybear, 2^64 for goldilocks), so their elements cross as bit views:
@@ -101,8 +103,8 @@ def to_jax_limbs(spec: FieldSpec, x: torch.Tensor, mont_form: bool = True
 
 def point_from_jax(spec: FieldSpec, p, device=mont.DEFAULT_DEVICE):
     """A JAX ``Affine``/``Jac`` (coordinates as numpy or JAX limb arrays
-    over ``spec``, the curve's base field, or E2 arrays over it for G2) ->
-    the port's point of the same kind."""
+    over ``spec``, the curve's base field, or E2 or E4 arrays over it for
+    G2) -> the port's point of the same kind."""
     kind = Jac if len(p) == 3 else Affine
     return kind(*(from_jax_limbs(spec, np.asarray(c), device=device)
                   for c in p))

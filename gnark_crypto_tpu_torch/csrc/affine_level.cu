@@ -1,5 +1,5 @@
 // One level of the MSM's batch-affine bucket tree, in two kernels around
-// the batched inversion of the denominators, at W = 8 and W = 12 words.
+// the batched inversion of the denominators, at W = 8, 10 and 12 words.
 //
 // Replaces the Pallas kernels gnark_crypto_tpu/field/pallas/point_add.py
 // `affine_prep` (`_prep_kernel`) and `affine_finish` (`_finish_kernel`).
@@ -7,7 +7,7 @@
 // int32 per lane. One thread per lane of the level (csrc/point.cuh cores).
 //
 // Bounds on the H100: both move far more bytes than they compute (an
-// element is 4W bytes: 32 at W = 8, 48 at W = 12).
+// element is 4W bytes: 32 at W = 8, 40 at W = 10, 48 at W = 12).
 // * affine_prep: reads l_suf and r_pre (4 elements), writes den, num and
 //   the mask bits (2 elements and 4 bytes); 1 product on doubling lanes
 //   only.
@@ -94,8 +94,8 @@ unsigned blocks_for(long long n) {
 
 }  // namespace
 
-// n_words: 8 or 12; curve_words: a in Montgomery form (n_words words), then
-// Montgomery one (n_words).
+// n_words: 8, 10 or 12; curve_words: a in Montgomery form (n_words
+// words), then Montgomery one (n_words).
 extern "C" int gct_affine_prep(const void* px, const void* py, const void* qx,
                                const void* qy, void* den, void* num,
                                void* maskbits, long long n, int n_words,

@@ -1,5 +1,5 @@
-// Fixed-exponent power out[i] = x[i]^e (Montgomery in and out), at W = 8
-// and W = 12 words.
+// Fixed-exponent power out[i] = x[i]^e (Montgomery in and out), at W = 8,
+// 10 and 12 words.
 //
 // Replaces the Pallas kernel gnark_crypto_tpu/field/pallas/exp.py
 // `exp_const_pallas` and its Fermat form `inverse_small` (x^(q-2), 0 -> 0):
@@ -35,9 +35,10 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunk = 4;  // squares handed over at one barrier
-// lanes an element at W words, and lanes a role in a block
+// lanes an element at W words (10 words: K = 3 words a lane, the twelfth
+// slot zero), and lanes a role in a block
 template <int W>
-constexpr int kTeam = W == 12 ? 4 : 1;
+constexpr int kTeam = W == 8 ? 1 : 4;
 constexpr int kLanes = 32;
 
 template <int W>
@@ -284,7 +285,7 @@ void exp_args(const uint32_t* one_words, const uint32_t* exp_words,
 
 }  // namespace
 
-// n_words: 8 or 12; one_words: Montgomery one (R mod q); exp_words: e's
+// n_words: 8, 10 or 12; one_words: Montgomery one (R mod q); exp_words: e's
 // n_words words, e < 2^(32 n_words); nbits: e's bit length.
 extern "C" int gct_exp_const(const void* x, void* out, long long n,
                              int n_words, const uint32_t* field_words,

@@ -1,13 +1,16 @@
 // Montgomery arithmetic on W x 32-bit words (R = 2^(32W)), as templates
-// over W, instantiated at W = 8 (bn254 Fr/Fp, the stark curve) and W = 12
-// (bls12-381 Fp, bls12-377 Fp, bw6-761 Fr). The wrappers admit a width only
-// for q < 2^(32W-1) (field/kernels.py), which reduce_once needs.
+// over W, instantiated at W = 8 (bn254 Fr/Fp, the stark curve), W = 10
+// (bls24-315 Fp, bls24-317 Fp, bw6-633 Fr) and W = 12 (bls12-381 Fp,
+// bls12-377 Fp, bw6-761 Fr). The wrappers admit a width only for
+// q < 2^(32W-1) (field/kernels.py), which reduce_once needs.
 //
 // Shared by every kernel of this directory. Elements are canonical (< q),
-// little-endian words, 4W bytes each, so one element is W/4 16-byte loads.
-// The product is a word-serial CIOS with 64-bit partial products: 2W^2 + W
-// 32x32->64 multiply-adds per product (W^2 for a*b, W^2 for m*q, W for m):
-// 136 at W = 8, 300 at W = 12.
+// little-endian words, 4W bytes each, in (N, W) rows: one element is W/4
+// 16-byte loads when W is a multiple of 4, else W/2 8-byte loads (a 40-byte
+// 10-word row is only 8-byte aligned every second row). The product is a
+// word-serial CIOS with 64-bit partial products: 2W^2 + W 32x32->64
+// multiply-adds per product (W^2 for a*b, W^2 for m*q, W for m): 136 at
+// W = 8, 210 at W = 10, 300 at W = 12.
 //
 // Kernels built at 8 words only (the NTT) use the names at the end:
 // W, Elem, FieldConst, field_const and load_elem without a width.
@@ -37,32 +40,49 @@ inline FieldConstT<W> field_const(const uint32_t* words) {
 
 template <int W>
 struct ElemT {
-  static_assert(W % 4 == 0, "an element is whole 16-byte loads");
+  static_assert(W % 2 == 0, "an element is whole 8-byte loads");
   uint32_t w[W];
 };
 
 template <int W>
 __device__ __forceinline__ ElemT<W> load_elem(const uint32_t* p) {
-  const uint4* v = reinterpret_cast<const uint4*>(p);
   ElemT<W> e;
+  if constexpr (W % 4 == 0) {
+    const uint4* v = reinterpret_cast<const uint4*>(p);
 #pragma unroll
-  for (int k = 0; k < W / 4; ++k) {
-    const uint4 a = __ldg(v + k);
-    e.w[4 * k] = a.x;
-    e.w[4 * k + 1] = a.y;
-    e.w[4 * k + 2] = a.z;
-    e.w[4 * k + 3] = a.w;
+    for (int k = 0; k < W / 4; ++k) {
+      const uint4 a = __ldg(v + k);
+      e.w[4 * k] = a.x;
+      e.w[4 * k + 1] = a.y;
+      e.w[4 * k + 2] = a.z;
+      e.w[4 * k + 3] = a.w;
+    }
+  } else {
+    const uint2* v = reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int k = 0; k < W / 2; ++k) {
+      const uint2 a = __ldg(v + k);
+      e.w[2 * k] = a.x;
+      e.w[2 * k + 1] = a.y;
+    }
   }
   return e;
 }
 
 template <int W>
 __device__ __forceinline__ void store_elem(uint32_t* p, const ElemT<W>& e) {
-  uint4* v = reinterpret_cast<uint4*>(p);
+  if constexpr (W % 4 == 0) {
+    uint4* v = reinterpret_cast<uint4*>(p);
 #pragma unroll
-  for (int k = 0; k < W / 4; ++k)
-    v[k] = make_uint4(e.w[4 * k], e.w[4 * k + 1], e.w[4 * k + 2],
-                      e.w[4 * k + 3]);
+    for (int k = 0; k < W / 4; ++k)
+      v[k] = make_uint4(e.w[4 * k], e.w[4 * k + 1], e.w[4 * k + 2],
+                        e.w[4 * k + 3]);
+  } else {
+    uint2* v = reinterpret_cast<uint2*>(p);
+#pragma unroll
+    for (int k = 0; k < W / 2; ++k)
+      v[k] = make_uint2(e.w[2 * k], e.w[2 * k + 1]);
+  }
 }
 
 // a + top*2^(32W) - q if that is >= 0, else a. Needs a + top*2^(32W) < 2q.
@@ -324,6 +344,8 @@ inline int for_width(int n_words, F&& f) {
   switch (n_words) {
     case 8:
       return f(std::integral_constant<int, 8>{});
+    case 10:
+      return f(std::integral_constant<int, 10>{});
     case 12:
       return f(std::integral_constant<int, 12>{});
     default:

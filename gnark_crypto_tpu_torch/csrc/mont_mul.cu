@@ -1,5 +1,5 @@
 // Batched Montgomery product out[i] = x[i] * y[i] * 2^(-32W) mod q, at
-// W = 8 and W = 12 words.
+// W = 8, 10 and 12 words.
 //
 // Replaces the Pallas kernel gnark_crypto_tpu/field/pallas/mont_mul.py
 // `mont_mul` (tile body `_mm_tile`): there lazy-carry 11-13-bit limbs in
@@ -31,7 +31,7 @@ __global__ void mont_mul_kernel(const uint32_t* __restrict__ x,
 
 }  // namespace
 
-// n_words: 8 or 12; field_words: q's n_words words, then -q^-1 mod 2^32.
+// n_words: 8, 10 or 12; field_words: q's n_words words, then -q^-1 mod 2^32.
 extern "C" int gct_mont_mul(const void* x, const void* y, void* out,
                             long long n, int n_words,
                             const uint32_t* field_words, void* stream) {

@@ -1,5 +1,5 @@
-// Short-Weierstrass point arithmetic on W-word Montgomery elements (W = 8
-// and 12): the device cores of csrc/point_add.cu and csrc/affine_level.cu,
+// Short-Weierstrass point arithmetic on W-word Montgomery elements (W = 8,
+// 10 and 12): the device cores of csrc/point_add.cu and csrc/affine_level.cu,
 // and over Fp2 (csrc/fp2.cuh, 8 and 12 words) of csrc/point_add2.cu and
 // csrc/affine_level2.cu. Each core is a template over the element type E
 // (ElemT<W> or Elem2T<W, NR>) and its field constants FC, and calls the

@@ -1,5 +1,5 @@
 // Batched Jacobian point add and double, and the MSM's Horner window fold,
-// at W = 8 and W = 12 words.
+// at W = 8, 10 and 12 words.
 //
 // Replaces the Pallas kernels of gnark_crypto_tpu/field/pallas/point_add.py:
 // `jac_add` (`_kernel`, `_add_core_ops`), `jac_double` (`_dbl_kernel`,
@@ -109,8 +109,8 @@ unsigned blocks_for(long long n) {
 
 }  // namespace
 
-// n_words: 8 or 12; curve_words: a in Montgomery form (n_words words), then
-// Montgomery one (n_words).
+// n_words: 8, 10 or 12; curve_words: a in Montgomery form (n_words
+// words), then Montgomery one (n_words).
 extern "C" int gct_jac_add(const void* x1, const void* y1, const void* z1,
                            const void* x2, const void* y2, const void* z2,
                            void* x3, void* y3, void* z3, long long n,

@@ -2,7 +2,7 @@
 
 ``mont_mul(spec, x, y)`` on ``(N, W)`` int32 word tensors returns
 ``x * y * 2^(-32W) mod q``, canonical. A CUDA tensor goes to the hand-written
-kernel ``csrc/mont_mul.cu`` (W-word CIOS at W = 8 or 12, one thread per
+kernel ``csrc/mont_mul.cu`` (W-word CIOS at W = 8, 10 or 12, one thread per
 element), a CPU tensor to :func:`mont_mul_plain`. The two agree bit for
 bit, because both return the canonical residue.
 
@@ -29,8 +29,8 @@ M16 = 0xFFFF
 M32 = 0xFFFFFFFF
 
 # the widths csrc/field.cuh instantiates (gct::for_width): the field,
-# exponent, point and VM kernels are built at both
-FIELD_WIDTHS = (8, 12)
+# exponent, point and VM kernels are built at each
+FIELD_WIDTHS = (8, 10, 12)
 
 
 # ---------------------------------------------------------------------------
@@ -121,28 +121,40 @@ def check_width(spec: FieldSpec, what: str, widths: tuple[int, ...]) -> None:
     ``reduce_once`` (``csrc/field.cuh``)."""
     W = spec.n_words
     if W not in widths or spec.modulus >> (32 * W - 1):
+        # the ROADMAP's widths still to build: (b) 10 and 12 words in the
+        # NTT, (c) 20 and 24 words, (d) 8 words with q >= 2^255
+        todo = "(d)" if W == 8 else "(c)" if W in (20, 24) else "(b)"
         raise NotImplementedError(
             f"{what}: {spec.name} ({W} words, {spec.modulus.bit_length()} "
             f"bits) is not ported to its CUDA kernel, which takes "
             f"{' or '.join(map(str, widths))}-word fields with "
-            "q < 2^(32W-1)")
+            f"q < 2^(32W-1) (ROADMAP.md queue 2, widths {todo})")
+
+
+def load_align(n_words: int) -> int:
+    """The bytes a kernel loads an element's words in (``csrc/field.cuh``
+    ``load_elem``): 16 when W is a multiple of 4, else 8. A 10-word row is
+    40 bytes, so every second row of an (N, 10) tensor is 8-byte aligned."""
+    return 16 if n_words % 4 == 0 else 8
 
 
 def check_kernel_args(spec: FieldSpec, what: str, *ts: torch.Tensor,
                       widths: tuple[int, ...]) -> None:
     """What every CUDA wrapper checks before a launch: a field of a width
     its kernel was built for (:func:`check_width`), and int32 (N, W)
-    tensors, contiguous, 16-byte aligned, on one device."""
+    tensors, contiguous, aligned to the kernel's loads
+    (:func:`load_align`), on one device."""
     check_width(spec, what, widths)
+    align = load_align(spec.n_words)
     for t in ts:
         if (t.dtype != torch.int32 or t.dim() != 2
                 or t.shape[1] != spec.n_words):
             raise ValueError(f"{what}: expected int32 (N, {spec.n_words}), "
                              f"got {t.dtype} {tuple(t.shape)}")
         if (t.device != ts[0].device or not t.is_contiguous()
-                or t.data_ptr() % 16):
+                or t.data_ptr() % align):
             raise ValueError(f"{what}: tensors must share one device and be "
-                             "contiguous and 16-byte aligned")
+                             f"contiguous and {align}-byte aligned")
 
 
 def count_launch(wrapper, spec: FieldSpec) -> None:

@@ -25,7 +25,7 @@ import torch
 
 from gnark_crypto_tpu_torch.field import exp as field_exp
 from gnark_crypto_tpu_torch.field.kernels import (
-    carry_words, const_words, mont_mul, reduce_once, to_i32, u32)
+    M32, carry_words, const_words, mont_mul, to_i32, u32)
 from gnark_crypto_tpu_torch.specs.field import FieldSpec, int_to_words
 
 DEFAULT_DEVICE = "cuda"
@@ -86,17 +86,50 @@ def ones(spec: FieldSpec, shape=(), device=DEFAULT_DEVICE) -> torch.Tensor:
 # ring ops
 # ---------------------------------------------------------------------------
 
+def _lookahead(g: torch.Tensor, p: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The carries of a word-serial chain c_(i+1) = g_i | (p_i & c_i),
+    c_0 = 0, where word i generates (g_i) or propagates (p_i) one, never
+    both (int64 0/1 words): returns the carry into each word and out of the
+    top one. One integer addition runs the whole chain, as a carry-lookahead
+    adder does: with the bits packed, G = sum g_i 2^i and P = sum p_i 2^i,
+    bit i of ((G << 1) + P) ^ P is c_i. A handful of tensor ops whatever
+    the width, where a loop over the words costs four a word: the field's
+    add and sub on small batches are bound by their launches on the card."""
+    sh = const_words(tuple(range(g.shape[-1])), str(g.device))
+    big_p = (p << sh).sum(-1)
+    c = (((g << sh).sum(-1) << 1) + big_p) ^ big_p
+    return (c[..., None] >> sh) & 1, (c >> g.shape[-1]) & 1
+
+
+def _carry(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Word sums s_i < 2^33 -> their words carried, and the carry out."""
+    w = s & M32
+    cin, top = _lookahead(s >> 32, (w == M32).to(torch.int64))
+    return (w + cin) & M32, top
+
+
+def _borrow(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Word differences |d_i| < 2^32 -> their words borrowed, and the
+    borrow out."""
+    bin_, bout = _lookahead((d < 0).to(torch.int64),
+                            (d == 0).to(torch.int64))
+    return (d - bin_) & M32, bout
+
+
 def add(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(x + y) mod q. Reference: ``element.go:394``."""
-    s, top = carry_words(u32(x) + u32(y))
-    return to_i32(reduce_once(spec, s, top))
+    s, top = _carry(u32(x) + u32(y))
+    # s + top * R - q, kept unless it borrows past top
+    d, bout = _borrow(s - const_words(spec.q_words, str(s.device)))
+    return to_i32(torch.where((top >= bout)[..., None], d, s))
 
 
 def sub(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(x - y) mod q. Reference: ``element.go:434``."""
-    d, b = carry_words(u32(x) - u32(y))
-    dq, _ = carry_words(d + const_words(spec.q_words, str(d.device)))
-    return to_i32(torch.where((b < 0)[..., None], dq, d))
+    d, bout = _borrow(u32(x) - u32(y))
+    dq, _ = _carry(d + const_words(spec.q_words, str(d.device)))
+    return to_i32(torch.where((bout == 1)[..., None], dq, d))
 
 
 def neg(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ the JAX wrapper's argument order, with the curve's ``a`` as a plain int:
 * :func:`jac_fold_windows`: the Horner fold of the per-window totals.
 
 A CUDA tensor goes to ``csrc/point_add.cu`` or ``csrc/affine_level.cu``
-(cores in ``csrc/point.cuh``; W = 8 or 12 words), a CPU tensor to the
+(cores in ``csrc/point.cuh``; W = 8, 10 or 12 words), a CPU tensor to the
 ``*_plain`` version here. The plain versions use only
 :func:`mont_mul_plain` and the plain ``mont.add``/``mont.sub``, so on the
 card they launch no kernel. Both follow the JAX formulas in the same

@@ -27,7 +27,7 @@ and read or written by another; the code is laid out [wave][slot].
 :func:`execute` loads the entry rows (inputs and Montgomery constants) and
 calls :func:`vm_execute`: a CUDA tensor goes to ``csrc/vm.cu`` (one block
 of ``warps`` warps per 32-lane tile, warp w running slot w of every wave,
-the register file in shared memory; W = 8 or 12 words), which runs
+the register file in shared memory; W = 8, 10 or 12 words), which runs
 scheduled programs only, a CPU tensor to :func:`vm_execute_plain`, which
 runs any program row by row with the plain field ops (a wave's rows in any
 order give the same registers). Both return canonical residues, so they
@@ -46,7 +46,7 @@ import torch
 
 from gnark_crypto_tpu_torch.field import mont
 from gnark_crypto_tpu_torch.field.kernels import (
-    FIELD_WIDTHS, check_width, count_launch, mont_mul_plain)
+    FIELD_WIDTHS, check_width, count_launch, load_align, mont_mul_plain)
 from gnark_crypto_tpu_torch.specs.field import FieldSpec, int_to_words
 from gnark_crypto_tpu_torch.utils import build
 
@@ -77,6 +77,8 @@ class Program:                                 # are built once and cached
     tile: int = TILE                 # lanes per tile (the width of ROT)
     n_entry: int = 0                 # entry rows = phys regs [0, n_entry)
     warps: int = 0                   # rows a wave if scheduled, else 0
+    window: int = 0                  # the scheduler's look-ahead window
+                                     # that fitted (WINDOWS), else 0
 
     @property
     def n_waves(self) -> int:
@@ -284,7 +286,8 @@ WINDOWS = (1024, 256, 64, 16, 4, 1)
 
 def reg_cap(spec: FieldSpec) -> int:
     """Registers that one block's shared memory holds at the card's tile:
-    K x W x 4 bytes x 32 lanes <= SMEM_BYTES (227 at 8 words, 151 at 12)."""
+    K x W x 4 bytes x 32 lanes <= SMEM_BYTES (227 at 8 words, 181 at 10,
+    151 at 12)."""
     return SMEM_BYTES // (spec.n_words * 4 * TILE)
 
 
@@ -473,6 +476,7 @@ def _schedule(prog: Program, warps: int) -> Program:
                                       b if op == OP_ROT else phys[b])
     return dataclasses.replace(
         prog, code=code, n_regs=max(K, 1), n_instrs=len(code), warps=warps,
+        window=window,
         out_regs=tuple((name, phys[v]) for (name, _), v in zip(
             prog.out_regs, dag.outs)))
 
@@ -532,10 +536,11 @@ def vm_execute(prog: Program, state: torch.Tensor) -> torch.Tensor:
         return vm_execute_plain(prog, state)
     check_width(spec, "vm_execute", FIELD_WIDTHS)
     if (state.dtype != torch.int32 or W != spec.n_words
-            or not state.is_contiguous() or state.data_ptr() % 16):
-        raise ValueError("vm_execute: expected a contiguous, 16-byte aligned"
-                         f" int32 (n_entry, n_pad, {spec.n_words}) tensor, "
-                         f"got {state.dtype} {tuple(state.shape)}")
+            or not state.is_contiguous()
+            or state.data_ptr() % load_align(W)):
+        raise ValueError("vm_execute: expected a contiguous, aligned int32 "
+                         f"(n_entry, n_pad, {spec.n_words}) tensor, got "
+                         f"{state.dtype} {tuple(state.shape)}")
     if not 1 <= prog.warps <= MAX_WARPS or prog.tile != TILE:
         raise ValueError("vm_execute: the kernel runs programs from "
                          f"vm.schedule at a tile of {TILE} lanes, got "

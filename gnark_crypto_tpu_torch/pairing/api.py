@@ -2,9 +2,10 @@
 
 Counterpart of ``gnark_crypto_tpu/pairing/api.py``: protocols call
 pairings through this module (reference per-curve ``Pair``/
-``PairingCheck``, ``ecc/<curve>/pairing.go``). The BN/BLS12 families run
-on ``pairing/pairing12.py``; BLS24 and BW6 are not ported yet (ROADMAP.md
-queue 1, item 7). Every function runs on the device of its inputs.
+``PairingCheck``, ``ecc/<curve>/pairing.go``). The BN/BLS12/BLS24
+families run on ``pairing/pairing12.py``; BW6 is not ported yet
+(ROADMAP.md queue 1, item 4). Every function runs on the device of its
+inputs.
 """
 
 from __future__ import annotations
@@ -12,14 +13,14 @@ from __future__ import annotations
 from gnark_crypto_tpu_torch.field.mont import DEFAULT_DEVICE
 from gnark_crypto_tpu_torch.pairing import pairing12
 
-_LATER = ("bls24_315", "bls24_317", "bw6_761", "bw6_633")
+_LATER = ("bw6_761", "bw6_633")
 
 
 def _ctx(name: str, device):
     if name in _LATER:
         raise NotImplementedError(
-            f"{name}: the BLS24 and BW6 pairings are not ported yet "
-            "(ROADMAP.md queue 1, item 7)")
+            f"{name}: the BW6 pairings are not ported yet (ROADMAP.md "
+            "queue 1, item 4)")
     return pairing12.get_ctx(name, device)
 
 
@@ -68,11 +69,13 @@ def gt_is_in_subgroup(name: str, z):
         b = tw.cyclotomic_square(expt(expt(z)))    # z^(2x^2)
         b = e12.mul(b, tw.cyclotomic_square(b))    # z^(6x^2)
         return e12.equal(a, b)
-    # BLS12: z^(phi_12(p)) == 1 and z^(p+1-t) == 1, i.e.
-    # FrobeniusSquare(z) == FrobeniusSquare(FrobeniusSquare(z))*z and
-    # Frobenius(z) == z^x (bls12-381 e12.go IsInSubGroup)
-    a = tw.frobenius_square(z)
-    b = e12.mul(tw.frobenius_square(a), z)
+    # BLS12/BLS24: z^(phi_k(p)) == 1 and z^(p+1-t) == 1, i.e.
+    # FrobeniusSquare(z) == FrobeniusSquare(FrobeniusSquare(z))*z (k = 12;
+    # FrobeniusQuad for k = 24) and Frobenius(z) == z^x (bls12-381 e12.go
+    # IsInSubGroup)
+    fr2 = tw.frobenius_quad if ctx.family == "bls24" else tw.frobenius_square
+    a = fr2(z)
+    b = e12.mul(fr2(a), z)
     cyc = e12.equal(a, b)
     tor = e12.equal(tw.frobenius(z), expt(z))
     return cyc & tor

@@ -1,10 +1,13 @@
-"""Optimal ate pairings for BN254 / BLS12 curves, batched over pairs.
+"""Optimal ate pairings for BN254 / BLS12 / BLS24 curves, batched over pairs.
 
 Counterpart of ``gnark_crypto_tpu/pairing/pairing12.py`` (reference
-``ecc/bn254/pairing.go``, ``ecc/bls12-381/pairing.go``): the per-curve
-pairing context (seed, loop counter, twist constants), the homogeneous
-projective double/add steps with their lines (eprint 2013/722 §4.3;
-pairing.go:292,333,377), the final exponentiation and the hard parts.
+``ecc/bn254/pairing.go``, ``ecc/bls12-381/pairing.go``,
+``ecc/bls24-315/pairing.go``): the per-curve pairing context (seed, loop
+counter, twist constants), the homogeneous projective double/add steps with
+their lines (eprint 2013/722 §4.3; pairing.go:292,333,377), the final
+exponentiation and the hard parts. The BLS24 family runs the same code one
+level up: its G2 coordinates and line coefficients are E4 elements and its
+GT is E24 (``towers/tower24.py``, whose level names follow Tower12's).
 
 :func:`pair` runs the whole pairing as VM programs
 (``pairing/vm_pairing.py``): the formulas here are run over the symbolic
@@ -23,6 +26,7 @@ import torch
 from gnark_crypto_tpu_torch.field.mont import DEFAULT_DEVICE
 from gnark_crypto_tpu_torch.towers.tower12 import (
     _h2_inv, _h2_mul, _scale_ext_by_fp, get_tower)
+from gnark_crypto_tpu_torch.towers.tower24 import get_tower24
 
 
 def naf(n: int) -> list[int]:
@@ -50,8 +54,8 @@ class PairingCtx:
 
     def __init__(self, name: str, tower=None, device=DEFAULT_DEVICE):
         """``tower``: inject an alternative tower implementation (the
-        symbolic program-emitting SymTower12) in place of the word-tensor
-        one on ``device``."""
+        symbolic program-emitting SymTower12 or SymTower24) in place of the
+        word-tensor one on ``device``."""
         self.name = name
         if name == "bn254":
             self.tower = tower or get_tower("bn254", device)
@@ -86,10 +90,26 @@ class PairingCtx:
                 # bls12-377 D-twist: b' = b / xi = 1/u (bls12-377.go)
                 self.b_twist = _h2_inv(self.tower.xi, p, self.tower.beta)
                 self.twist_type = "D"
-        elif name in ("bls24_315", "bls24_317"):
-            raise NotImplementedError(
-                f"{name}: the degree-24 tower is not ported yet (ROADMAP.md "
-                "queue 1, item 7)")
+        elif name == "bls24_315":
+            self.tower = tower or get_tower24(name, device)
+            self.family = "bls24"
+            self.seed = 3218079743        # |x0|, x0 < 0 (bls24-315.go:161;
+            self.seed_neg = True          # Expt chain = x^(1+3*2^20-3*2^30))
+            self.loop = naf(self.seed)    # NafDecomposition (bls24-315.go:158)
+            p = self.tower.p
+            # D-twist: b' = b / v = v^-1 = u v / 13 (bls24-315.go:113-115)
+            self.b_twist = ((0, 0), (0, pow(13, -1, p)))
+            self.twist_type = "D"
+        elif name == "bls24_317":
+            self.tower = tower or get_tower24(name, device)
+            self.family = "bls24"
+            self.seed = 3640754176        # x0 > 0 (bls24-317.go:149)
+            self.seed_neg = False
+            self.loop = naf(self.seed)
+            # M-twist: b' = b v = 4 v (bls24-317.go:99-101), as nested
+            # (B0, B1) E4 coordinates over E2
+            self.b_twist = ((0, 0), (4, 0))
+            self.twist_type = "M"
         else:
             raise KeyError(name)
         e2 = self.tower.e2
@@ -97,8 +117,8 @@ class PairingCtx:
 
     # -- coefficient-level helpers ------------------------------------------
     def _scale_e2(self, a, s):
-        """E2 element scaled componentwise by an fp element
-        (E2.MulByElement)."""
+        """Coefficient-level element (E2, or E4 for BLS24) scaled
+        componentwise by an fp element (E2/E4.MulByElement)."""
         return _scale_ext_by_fp(self.tower, a, s)
 
     def _mul_b_twist(self, a):
@@ -152,8 +172,10 @@ class PairingCtx:
 
     def line_prod(self, facc, line, px, py):
         """facc * line(P): the sparse MulBy034 (D-twist) / MulBy014
-        (M-twist) of ``towers/tower12.py`` SparseLineMixin, bit-identical
-        to the dense product. D-twist coefficients land at (0, 3, 4) as
+        (M-twist) of ``towers/tower12.py`` SparseLineMixin, at the E2 level
+        for Tower12 and the E4 level for Tower24 (e24_pairing.go:35),
+        bit-identical to the dense product. D-twist coefficients land at
+        (0, 3, 4) as
         (r0*Py, r1*Px, r2); the M-twist swaps the roles of r0 and r2 and
         lands at (0, 1, 4) as (r2, r1*Px, r0*Py) (pairing.go:146-156)."""
         tw = self.tower
@@ -198,19 +220,24 @@ def _ctx(name: str, device: str) -> PairingCtx:
 
 
 def get_ctx(name: str, device=DEFAULT_DEVICE) -> PairingCtx:
-    """The pairing context of a BN/BLS12 curve, its constants on device."""
+    """The pairing context of a BN/BLS12/BLS24 curve, its constants on
+    device."""
     return _ctx(name, str(torch.device(device)))
 
 
 def final_exponentiation(ctx: PairingCtx, z):
     """Full-group exponentiation to the unique r-th power residue class
-    ((p^12-1)/r; pairing.go:52 FinalExponentiation)."""
+    ((p^k-1)/r; pairing.go:52 FinalExponentiation)."""
     tw = ctx.tower
     e12 = tw.e12
-    # easy part: (p^6 - 1)(p^2 + 1)
+    # easy part: (p^6 - 1)(p^2 + 1), for BLS24 (p^12 - 1)(p^4 + 1)
+    # (bls24 pairing.go:64-69)
     t0 = tw.conjugate(z)
     zi = e12.inverse(z)
     t0 = e12.mul(t0, zi)
+    if ctx.family == "bls24":
+        r = e12.mul(tw.frobenius_quad(t0), t0)
+        return _hard_part_bls24(ctx, r)
     r = e12.mul(tw.frobenius_square(t0), t0)
     if ctx.family == "bn":
         return _hard_part_bn(ctx, r)
@@ -281,6 +308,43 @@ def _hard_part_bls12(ctx: PairingCtx, result):
     t1 = e12.mul(t1, t2)
     t1 = e12.mul(t1, t0)
     return e12.mul(result, t1)
+
+
+def _hard_part_bls24(ctx: PairingCtx, result):
+    """BLS24 hard part, Hayashida-Hayasaka-Teruya (eprint 2020/875):
+    3(p^8-p^4+1)/r = (x-1)^2 (x+p)(x^2+p^2)(x^4+p^4-1) + 3 (exact op
+    sequence of bls24-315 pairing.go:77-105)."""
+    tw = ctx.tower
+    e24 = tw.e12
+
+    def expt_signed(x):
+        y = _expt(ctx, x)
+        return tw.conjugate(y) if ctx.seed_neg else y
+
+    t0 = tw.cyclotomic_square(result)
+    t1 = expt_signed(result)
+    t2 = tw.conjugate(result)
+    t1 = e24.mul(t1, t2)
+    t2 = expt_signed(t1)
+    t1 = tw.conjugate(t1)
+    t1 = e24.mul(t1, t2)
+    t2 = expt_signed(t1)
+    t1 = tw.frobenius(t1)
+    t1 = e24.mul(t1, t2)
+    result = e24.mul(result, t0)
+    t0 = expt_signed(t1)
+    t2 = expt_signed(t0)
+    t0 = tw.frobenius_square(t1)
+    t2 = e24.mul(t0, t2)
+    t1 = expt_signed(t2)
+    t1 = expt_signed(t1)
+    t1 = expt_signed(t1)
+    t1 = expt_signed(t1)
+    t0 = tw.frobenius_quad(t2)
+    t0 = e24.mul(t0, t1)
+    t2 = tw.conjugate(t2)
+    t0 = e24.mul(t0, t2)
+    return e24.mul(result, t0)
 
 
 def pair(name: str, P, QX, QY):

@@ -8,6 +8,10 @@ the digit branches become straight-line code because the loop counters are
 compile-time constants, as in the reference's unrolled ``e12_pairing.go``
 chains.
 
+The BLS24 programs run the same formulas over ``SymTower24``: G2
+coordinates are E4 elements (four fp inputs each, ``qx0..qx3``) and GT is
+E24 (24 fp outputs), at 10 words.
+
 Execution: ONE VM launch per ``_TILE[name]`` pairs (Miller + in-program
 lane product + final exp, the ``full`` program), or a short chain for
 larger batches: ``miller`` per tile, ``product`` folds while more than one
@@ -36,17 +40,19 @@ import torch
 from gnark_crypto_tpu_torch.field import vm
 from gnark_crypto_tpu_torch.pairing.pairing12 import (
     G2Proj, PairingCtx, final_exponentiation, get_ctx)
-from gnark_crypto_tpu_torch.towers.symbolic import SymTower12
+from gnark_crypto_tpu_torch.towers.symbolic import SymTower12, SymTower24
 from gnark_crypto_tpu_torch.towers.tower12 import (
     TOWER12_PARAMS, _scale_ext_by_fp)
+from gnark_crypto_tpu_torch.towers.tower24 import TOWER24_PARAMS
 
-VM_FAMILIES = ("bn254", "bls12_381", "bls12_377")
+VM_FAMILIES = ("bn254", "bls12_381", "bls12_377", "bls24_315", "bls24_317")
 
 # lanes per VM tile, per family: one warp, one block of the VM kernel, whose
-# register file (K x 32 bytes a lane, K = 123 for bn254 `full`) fills 126 KB
-# of shared memory at 32 lanes. The reference's 256 answered the TPU's VMEM
-# and its 128-lane rotates.
-_TILE = {"bn254": 32, "bls12_381": 32, "bls12_377": 32}
+# register file (K x 4W bytes a lane: K <= 168 at 8 words, 140 at 12, 181 at
+# 10 for the bls24 programs) fits a block's shared memory at 32 lanes. The
+# reference's 256 and 128 answered the TPU's VMEM and its 128-lane rotates.
+_TILE = {"bn254": 32, "bls12_381": 32, "bls12_377": 32,
+         "bls24_315": 32, "bls24_317": 32}
 
 # rows a wave, i.e. warps of the VM block, for every program variant: on
 # the H100 each of the 12 pairing programs runs fastest at 16 of 4, 8, 12
@@ -54,12 +60,38 @@ _TILE = {"bn254": 32, "bls12_381": 32, "bls12_377": 32}
 # schedulers are issue-bound (tools/vm_waves.py; PERF.md)
 WARPS = 16
 
-_NC = 12                 # GT coefficients over fp
-_GT_SHAPE = (2, 3, 2)    # [w][v][u]
+def _bls24(name: str) -> bool:
+    return name.startswith("bls24")
+
+
+def _gt_coeffs(name: str) -> int:
+    """GT coefficients over fp: 24 for BLS24 (E24), 12 for BN/BLS12."""
+    return 24 if _bls24(name) else 12
+
+
+def _gt_shape(name: str) -> tuple[int, ...]:
+    """[w][v][u] for E12, [z][w][v][u] for E24."""
+    return (2, 3, 2, 2) if _bls24(name) else (2, 3, 2)
+
+
+def _q_coords(name: str) -> int:
+    """fp coefficients per G2 coordinate: 2 over E2, 4 over E4 (BLS24)."""
+    return 4 if _bls24(name) else 2
+
+
+def _coord_shape(name: str) -> tuple[int, ...]:
+    return (2, 2) if _bls24(name) else (2,)
 
 
 def _flat_ids(x) -> list[int]:
     return [int(v) for v in np.asarray(x).ravel()]
+
+
+def _coord_input(asm: vm.Asm, prefix: str, name: str):
+    """A G2 coordinate's program inputs ``{prefix}0..`` as an id array of
+    the coordinate engine's element shape."""
+    ids = [asm.input(f"{prefix}{i}") for i in range(_q_coords(name))]
+    return np.asarray(ids, np.int32).reshape(_coord_shape(name))
 
 
 def _mask_gt(tw, facc, m, mc):
@@ -73,14 +105,15 @@ def _mask_gt(tw, facc, m, mc):
 
 
 def _sym_miller12(asm: vm.Asm, ctx: PairingCtx):
-    """BN/BLS12 Miller loop over the symbolic tower; returns the masked
-    facc coefficient-id array."""
+    """BN/BLS12/BLS24 Miller loop over the symbolic tower; returns the
+    masked facc coefficient-id array. ``e2`` is the G2 coordinate engine:
+    E2, or E4 for BLS24."""
     tw = ctx.tower
     f, e2 = tw.fp, tw.e2
 
     px, py = f.input("px"), f.input("py")
-    qx = np.asarray([asm.input(f"qx{i}") for i in range(2)], np.int32)
-    qy = np.asarray([asm.input(f"qy{i}") for i in range(2)], np.int32)
+    qx = _coord_input(asm, "qx", ctx.name)
+    qy = _coord_input(asm, "qy", ctx.name)
     m, mc = f.input("m"), f.input("mc")
 
     q = G2Proj(qx, qy, e2.ones(()))
@@ -130,18 +163,22 @@ def build_program(name: str, variant: str, tile: int | None = None
 @functools.lru_cache(maxsize=None)
 def _build_program(name: str, variant: str, tile: int) -> vm.Program:
     assert name in VM_FAMILIES, name
-    spec = TOWER12_PARAMS[name][0]
-    asm = vm.Asm(spec, tile=tile)
-    tw = SymTower12(name, asm)
+    if _bls24(name):
+        asm = vm.Asm(TOWER24_PARAMS[name][0], tile=tile)
+        tw = SymTower24(name, asm)
+    else:
+        asm = vm.Asm(TOWER12_PARAMS[name][0], tile=tile)
+        tw = SymTower12(name, asm)
     ctx = PairingCtx(name, tower=tw)
+    nc = _gt_coeffs(name)
 
     def outputs(gt):
         return {f"g{i}": v for i, v in enumerate(_flat_ids(gt))}
 
     if variant in ("reduce", "product"):
         f = tw.fp
-        facc = np.asarray([f.input(f"f{i}") for i in range(_NC)],
-                          np.int32).reshape(_GT_SHAPE)
+        facc = np.asarray([f.input(f"f{i}") for i in range(nc)],
+                          np.int32).reshape(_gt_shape(name))
         facc = _sym_lane_product(tw, facc)
         if variant == "product":
             return asm.build(outputs(facc))
@@ -175,13 +212,14 @@ def pair_vm(name: str, P, QX, QY):
     ``miller``, then ``product`` while more than one tile of products
     remains, then ``reduce``.
 
-    P: G1 ``Affine`` of (n, W) words; QX, QY: (n, 2, W) E2 coordinates;
-    infinity is all-zero. Returns the GT element, (2, 3, 2, W).
+    P: G1 ``Affine`` of (n, W) words; QX, QY: (n, 2, W) E2 coordinates,
+    or (n, 2, 2, W) E4 coordinates for BLS24; infinity is all-zero.
+    Returns the GT element, (2, 3, 2, W), or (2, 3, 2, 2, W) for BLS24.
     """
     if name not in VM_FAMILIES:
         raise NotImplementedError(
-            f"{name}: only the BN/BLS12 pairings are ported (ROADMAP.md "
-            "queue 1, item 7)")
+            f"{name}: the BW6 pairings are not ported yet (ROADMAP.md "
+            "queue 1, item 4)")
     ctx = get_ctx(name, P.x.device)
     tw = ctx.tower
     f, e2 = tw.fp, tw.e2
@@ -201,13 +239,16 @@ def pair_vm(name: str, P, QX, QY):
         "m": _pad_rows(m, n_pad, zero_row),
         "mc": _pad_rows(mc, n_pad, one_row),
     }
-    for i in range(2):
-        inputs[f"qx{i}"] = _pad_rows(QX[:, i], n_pad, zero_row)
-        inputs[f"qy{i}"] = _pad_rows(QY[:, i], n_pad, zero_row)
+    W = f.spec.n_words
+    qxf, qyf = QX.reshape(n, -1, W), QY.reshape(n, -1, W)
+    for i in range(_q_coords(name)):
+        inputs[f"qx{i}"] = _pad_rows(qxf[:, i], n_pad, zero_row)
+        inputs[f"qy{i}"] = _pad_rows(qyf[:, i], n_pad, zero_row)
+    nc = _gt_coeffs(name)
 
     def gt_from(out, row):
-        coeffs = [out[f"g{i}"][row] for i in range(_NC)]
-        return torch.stack(coeffs, 0).reshape(*_GT_SHAPE, -1)
+        coeffs = [out[f"g{i}"][row] for i in range(nc)]
+        return torch.stack(coeffs, 0).reshape(*_gt_shape(name), -1)
 
     if n_pad == tile:
         out = vm.execute(program(name, "full"), inputs, n_pad)
@@ -217,7 +258,7 @@ def pair_vm(name: str, P, QX, QY):
     # for more than one tile of tile-products, fold with product rounds
     out = vm.execute(program(name, "miller"), inputs, n_pad)
     T = n_pad // tile
-    vals = [out[f"g{i}"][::tile] for i in range(_NC)]
+    vals = [out[f"g{i}"][::tile] for i in range(nc)]
 
     def tile_inputs(vals, t_pad):
         return {f"f{i}": _pad_rows(v, t_pad, one_row if i == 0 else zero_row)
@@ -228,7 +269,7 @@ def pair_vm(name: str, P, QX, QY):
         out = vm.execute(program(name, "product"),
                          tile_inputs(vals, t_pad), t_pad)
         T = t_pad // tile
-        vals = [out[f"g{i}"][::tile] for i in range(_NC)]
+        vals = [out[f"g{i}"][::tile] for i in range(nc)]
 
     out = vm.execute(program(name, "reduce"), tile_inputs(vals, tile),
                      tile)

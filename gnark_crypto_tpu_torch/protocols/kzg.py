@@ -16,8 +16,8 @@ Counterpart of ``gnark_crypto_tpu/protocols/kzg.py`` (reference
 Polynomials, points and claimed values are plain (non-Montgomery) Fr
 words: a polynomial ``(n, W)``, a point or value ``(1, W)``. Commitments
 and quotients are affine G1 batches of one point, as in the JAX package.
-Any curve with a ported pairing works (bn254 on the card; bls12 on the
-CPU's plain executor).
+Any curve with a ported pairing works: bn254, bls12-381/377 and
+bls24-315/317, on the card or on the CPU's plain versions.
 
 Not ported yet (ROADMAP.md queue 1, item 6): ``VerifyingKey.with_lines``
 and the fixed-Q pairing of ``pairing/lines.py``; ``new_srs`` computes
@@ -55,7 +55,8 @@ class ProvingKey:
 
 @dataclasses.dataclass
 class VerifyingKey:
-    g2: Affine        # [1]G2 (Fp2 coordinates), batch (1,)
+    g2: Affine        # [1]G2, batch (1,): Fp2 coordinates (1, 2, W), or
+                      # Fp4 coordinates (1, 2, 2, W) for BLS24
     alpha_g2: Affine  # [alpha]G2
     g1: Affine        # [1]G1
     # precomputed pairing lines for [g2, alpha_g2] (reference kzg.go:45
@@ -180,7 +181,8 @@ def _fr_neg_plain(fr, k: torch.Tensor) -> torch.Tensor:
 
 
 def _pairing_check(name: str, P: Affine, vk: VerifyingKey) -> torch.Tensor:
-    """e(P_0, G2) e(P_1, [alpha]G2) == 1."""
+    """e(P_0, G2) e(P_1, [alpha]G2) == 1. The G2 coordinates concatenate
+    along the batch axis, (2, 2, W) over Fp2 or (2, 2, 2, W) over Fp4."""
     if vk.lines is not None:
         raise NotImplementedError(_NO_LINES)
     qx = torch.cat([vk.g2.x, vk.alpha_g2.x])

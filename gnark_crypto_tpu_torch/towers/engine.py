@@ -21,14 +21,26 @@ The arithmetic runs where its operands live.
 Multiplication algorithms match the reference's choices (Karatsuba 3-mul
 for quadratic, ``e2_fallback.go``; Karatsuba/CH-SQR2 for cubic,
 ``e6.go:15``).
+
+Over the word tensors of a multi-word field, an extension's linear ops
+(add, sub, neg, double, halve, the zero and equality tests) run once over
+all its coefficients, and a product's base products go to one batched
+base product (stacked on a new leading axis), so an E4 product is one
+``mont_mul`` launch, not nine: the same values, fewer launches, which
+bound the tower's ops on the card at small batches (bls24's G2 over Fp4).
+The symbolic engines keep the per-coefficient order, in which the VM
+programs are emitted.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
+from gnark_crypto_tpu_torch.field import mont
+from gnark_crypto_tpu_torch.field.api import FieldEngine
 from gnark_crypto_tpu_torch.field.mont import DEFAULT_DEVICE
 
 
@@ -93,20 +105,49 @@ class ExtEngine:
         return tuple(self.base.to_int(self.coeff(x, i), mont=mont)
                      for i in range(self.degree))
 
+    # -- word-tensor fast paths ---------------------------------------------
+    @functools.cached_property
+    def _flat(self):
+        """The multi-word field engine at the bottom of the tower, whose
+        ops act coefficientwise on a whole extension element; None for the
+        other engines (symbolic, small fields)."""
+        b = self.base
+        while isinstance(b, ExtEngine):
+            b = b.base
+        return b if isinstance(b, FieldEngine) and b.impl is mont else None
+
+    def _products(self, xs, ys):
+        """The base products xs[i] * ys[i] in one batched base ``mul`` over
+        a stacked leading axis (word tensors only)."""
+        ops = torch.broadcast_tensors(*xs, *ys)
+        prods = self.base.mul(torch.stack(ops[:len(xs)]),
+                              torch.stack(ops[len(xs):]))
+        return prods.unbind(0)
+
     # -- linear ops ---------------------------------------------------------
     def add(self, x, y):
+        if self._flat is not None:
+            return self._flat.add(x, y)
         return self._lift2(self.base.add, x, y)
 
     def sub(self, x, y):
+        if self._flat is not None:
+            return self._flat.sub(x, y)
         return self._lift2(self.base.sub, x, y)
 
     def neg(self, x):
+        if self._flat is not None:
+            return self._flat.neg(x)
         return self._lift1(self.base.neg, x)
 
     def double(self, x):
+        if self._flat is not None:
+            return self._flat.double(x)
         return self._lift1(self.base.double, x)
 
     def halve(self, x):
+        if self._flat is not None:
+            return self._flat.halve(x)
         return self._lift1(self.base.halve, x)
 
     def _lift1(self, fn, x):
@@ -117,13 +158,22 @@ class ExtEngine:
                            for i in range(self.degree)])
 
     # -- predicates ---------------------------------------------------------
+    def _all_coeffs(self, mask):
+        """A word engine's per-coefficient mask -> one bool per element."""
+        k = self.elem_dims - 1
+        return mask.reshape(*mask.shape[:mask.dim() - k], -1).all(-1)
+
     def is_zero(self, x):
+        if self._flat is not None:
+            return self._all_coeffs(self._flat.is_zero(x))
         r = self.base.is_zero(self.coeff(x, 0))
         for i in range(1, self.degree):
             r = r & self.base.is_zero(self.coeff(x, i))
         return r
 
     def equal(self, x, y):
+        if self._flat is not None:
+            return self._all_coeffs(self._flat.equal(x, y))
         r = self.base.equal(self.coeff(x, 0), self.coeff(y, 0))
         for i in range(1, self.degree):
             r = r & self.base.equal(self.coeff(x, i), self.coeff(y, i))
@@ -182,9 +232,13 @@ class QuadExtEngine(ExtEngine):
         b = self.base
         a0, a1 = self.coeff(x, 0), self.coeff(x, 1)
         b0, b1 = self.coeff(y, 0), self.coeff(y, 1)
-        v0 = b.mul(a0, b0)
-        v1 = b.mul(a1, b1)
-        t = b.mul(b.add(a0, a1), b.add(b0, b1))
+        if self._flat is not None:
+            v0, v1, t = self._products((a0, a1, b.add(a0, a1)),
+                                       (b0, b1, b.add(b0, b1)))
+        else:  # the symbolic engines emit in this order
+            v0 = b.mul(a0, b0)
+            v1 = b.mul(a1, b1)
+            t = b.mul(b.add(a0, a1), b.add(b0, b1))
         c0 = b.add(v0, self.mul_by_nr(v1))
         c1 = b.sub(b.sub(t, v0), v1)
         return self.build([c0, c1])
@@ -193,8 +247,12 @@ class QuadExtEngine(ExtEngine):
         # complex-style squaring (the generic 2-mul version)
         b = self.base
         a0, a1 = self.coeff(x, 0), self.coeff(x, 1)
-        v = b.mul(a0, a1)
-        t = b.mul(b.add(a0, a1), b.add(a0, self.mul_by_nr(a1)))
+        if self._flat is not None:
+            v, t = self._products((a0, b.add(a0, a1)),
+                                  (a1, b.add(a0, self.mul_by_nr(a1))))
+        else:  # the symbolic engines emit in this order
+            v = b.mul(a0, a1)
+            t = b.mul(b.add(a0, a1), b.add(a0, self.mul_by_nr(a1)))
         c0 = b.sub(b.sub(t, v), self.mul_by_nr(v))
         c1 = b.double(v)
         return self.build([c0, c1])
@@ -233,10 +291,18 @@ class CubicExtEngine(ExtEngine):
         b = self.base
         a0, a1, a2 = (self.coeff(x, i) for i in range(3))
         b0, b1, b2 = (self.coeff(y, i) for i in range(3))
-        v0, v1, v2 = b.mul(a0, b0), b.mul(a1, b1), b.mul(a2, b2)
-        t0 = b.sub(b.sub(b.mul(b.add(a1, a2), b.add(b1, b2)), v1), v2)
-        t1 = b.sub(b.sub(b.mul(b.add(a0, a1), b.add(b0, b1)), v0), v1)
-        t2 = b.sub(b.sub(b.mul(b.add(a0, a2), b.add(b0, b2)), v0), v2)
+        if self._flat is not None:
+            v0, v1, v2, u0, u1, u2 = self._products(
+                (a0, a1, a2, b.add(a1, a2), b.add(a0, a1), b.add(a0, a2)),
+                (b0, b1, b2, b.add(b1, b2), b.add(b0, b1), b.add(b0, b2)))
+            t0 = b.sub(b.sub(u0, v1), v2)
+            t1 = b.sub(b.sub(u1, v0), v1)
+            t2 = b.sub(b.sub(u2, v0), v2)
+        else:  # the symbolic engines emit in this order
+            v0, v1, v2 = b.mul(a0, b0), b.mul(a1, b1), b.mul(a2, b2)
+            t0 = b.sub(b.sub(b.mul(b.add(a1, a2), b.add(b1, b2)), v1), v2)
+            t1 = b.sub(b.sub(b.mul(b.add(a0, a1), b.add(b0, b1)), v0), v1)
+            t2 = b.sub(b.sub(b.mul(b.add(a0, a2), b.add(b0, b2)), v0), v2)
         c0 = b.add(v0, self.mul_by_nr(t0))
         c1 = b.add(t1, self.mul_by_nr(v2))
         c2 = b.add(t2, v1)
@@ -246,13 +312,19 @@ class CubicExtEngine(ExtEngine):
         # CH-SQR2 (e6.go Square)
         b = self.base
         a0, a1, a2 = (self.coeff(x, i) for i in range(3))
-        s0 = b.square(a0)
-        ab = b.mul(a0, a1)
-        s1 = b.double(ab)
-        s2 = b.square(b.add(b.sub(a0, a1), a2))
-        bc = b.mul(a1, a2)
-        s3 = b.double(bc)
-        s4 = b.square(a2)
+        if self._flat is not None:
+            m = b.add(b.sub(a0, a1), a2)
+            s0, ab, s2, bc, s4 = self._products((a0, a0, m, a1, a2),
+                                                (a0, a1, m, a2, a2))
+            s1, s3 = b.double(ab), b.double(bc)
+        else:  # the symbolic engines emit in this order
+            s0 = b.square(a0)
+            ab = b.mul(a0, a1)
+            s1 = b.double(ab)
+            s2 = b.square(b.add(b.sub(a0, a1), a2))
+            bc = b.mul(a1, a2)
+            s3 = b.double(bc)
+            s4 = b.square(a2)
         c0 = b.add(s0, self.mul_by_nr(s3))
         c1 = b.add(s1, self.mul_by_nr(s4))
         c2 = b.sub(b.add(b.add(s1, s2), s3), b.add(s0, s4))

@@ -1,13 +1,13 @@
 """Symbolic field/tower engines: run formula code to EMIT VM programs.
 
 Counterpart of ``gnark_crypto_tpu/towers/symbolic.py``. The extension
-towers (``towers/engine.py``, ``towers/tower12.py``) and the pairing step
-formulas (``pairing/pairing12.py``) are written against the field-engine
-protocol. This module provides a drop-in engine whose "elements" are numpy
-arrays of SSA value ids and whose ops append instructions to a
-:class:`field.vm.Asm`, so the same tower and pairing code that computes
-values on word tensors also assembles the straight-line programs the VM
-kernel executes.
+towers (``towers/engine.py``, ``towers/tower12.py``, ``towers/tower24.py``)
+and the pairing step formulas (``pairing/pairing12.py``) are written
+against the field-engine protocol. This module provides a drop-in engine
+whose "elements" are numpy arrays of SSA value ids and whose ops append
+instructions to a :class:`field.vm.Asm`, so the same tower and pairing
+code that computes values on word tensors also assembles the
+straight-line programs the VM kernel executes.
 
 Only the ops a straight-line program can express are supported; anything
 data-dependent (where/is_zero on runtime values) raises. Device arguments
@@ -22,6 +22,7 @@ from gnark_crypto_tpu_torch.field import vm
 from gnark_crypto_tpu_torch.specs.field import FieldSpec
 from gnark_crypto_tpu_torch.towers.engine import CubicExtEngine, QuadExtEngine
 from gnark_crypto_tpu_torch.towers.tower12 import TOWER12_PARAMS, Tower12
+from gnark_crypto_tpu_torch.towers.tower24 import TOWER24_PARAMS, Tower24
 
 
 class SymField:
@@ -183,6 +184,20 @@ class SymTower12(Tower12):
     def __init__(self, name: str, asm: vm.Asm):
         spec, beta, xi = TOWER12_PARAMS[name]
         super().__init__(name, spec, beta, xi,
+                         fp=SymField(spec, asm),
+                         quad_cls=SymQuadExt, cubic_cls=SymCubicExt)
+
+    def rot(self, x, lanes: int):
+        """Lane-rotate every fp coefficient (for in-kernel product trees)."""
+        return self.fp.rot(x, lanes)
+
+
+class SymTower24(Tower24):
+    """Tower24 over a symbolic fp engine (the BLS24 VM pairing programs)."""
+
+    def __init__(self, name: str, asm: vm.Asm):
+        spec, beta, v_sq = TOWER24_PARAMS[name]
+        super().__init__(name, spec, beta, v_sq,
                          fp=SymField(spec, asm),
                          quad_cls=SymQuadExt, cubic_cls=SymCubicExt)
 

@@ -66,18 +66,20 @@ def test_mont_mul_rejects_bad_input(cuda):
         kernels.mont_mul(SPEC, x, x.to(torch.int64))
     with pytest.raises(ValueError):
         kernels.mont_mul(SPEC, x[::2], x[::2])
-    # 10, 20 and 24 words, and 8 words with q > 2^255: not built for them
-    for spec in (fs.BLS24_315_FP, fs.BW6_633_FP, fs.BW6_761_FP,
+    # 20 and 24 words, and 8 words with q > 2^255: not built for them
+    for spec in (fs.SECP256R1_FP, fs.BW6_633_FP, fs.BW6_761_FP,
                  fs.SECP256K1_FP, fs.SECP256R1_FR):
         y = mont.from_int(spec, [1], device=cuda)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
             kernels.mont_mul(spec, y, y)
         with pytest.raises(NotImplementedError):
             exp.exp_const(spec, y, 3)
 
 
-# the 12-word fields of the kernels built at 8 and 12 words
+# the 12-word fields of the kernels built at 8, 10 and 12 words
 W12 = [fs.BLS12_381_FP, fs.BLS12_377_FP, fs.BW6_761_FR]
+# and their 10-word fields (bw6-633 Fr is bls24-315 Fp)
+W10 = [fs.BLS24_315_FP, fs.BLS24_317_FP, fs.BW6_633_FR]
 
 
 @pytest.mark.cuda
@@ -108,6 +110,43 @@ def test_exp_const_kernel_matches_plain_12_words(cuda, spec):
         before = exp.exp_const.launches_by_width.get(12, 0)
         got = exp.exp_const(spec, x, e)
         assert exp.exp_const.launches_by_width[12] == before + 1
+        assert torch.equal(got, exp.exp_const_plain(spec, x, e))
+    assert mont.to_int(spec, mont.inverse(spec, x[:8])) == [
+        pow(v, q - 2, q) for v in vals[:8]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", W10, ids=lambda s: s.name)
+def test_mont_mul_kernel_matches_plain_10_words(cuda, spec):
+    """At 10 words every second row is only 8-byte aligned: odd lengths and
+    a slice from an odd row take the kernel's 8-byte loads."""
+    q = spec.modulus
+    rng = random.Random(10)
+    a = [0, 1, q - 1, (q - 1) // 2] + [rng.randrange(q) for _ in range(4097)]
+    b = [q - 1, 0, 1, (q + 1) // 2] + [rng.randrange(q) for _ in range(4097)]
+    x, y = (mont.from_int(spec, v, device=cuda) for v in (a, b))
+    by_width = dict(kernels.mont_mul.launches_by_width)
+    got = kernels.mont_mul(spec, x, y)
+    assert kernels.mont_mul.launches_by_width[10] == by_width.get(10, 0) + 1
+    assert kernels.mont_mul.launches_by_width.get(12) == by_width.get(12)
+    assert torch.equal(got, kernels.mont_mul_plain(spec, x, y))
+    assert x[1:].data_ptr() % 16 == 8
+    assert torch.equal(kernels.mont_mul(spec, x[1:], y[1:]), got[1:])
+    assert mont.to_int(spec, got[:64]) == [u * v % q
+                                           for u, v in zip(a[:64], b[:64])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", W10, ids=lambda s: s.name)
+def test_exp_const_kernel_matches_plain_10_words(cuda, spec):
+    q = spec.modulus
+    rng = random.Random(14)
+    vals = [0, 1, q - 1] + [rng.randrange(q) for _ in range(200)]
+    x = mont.from_int(spec, vals, device=cuda)
+    for e in (q - 2, 3, (q - 1) // 2, 0, 1 << 400):
+        before = exp.exp_const.launches_by_width.get(10, 0)
+        got = exp.exp_const(spec, x, e)
+        assert exp.exp_const.launches_by_width[10] == before + 1
         assert torch.equal(got, exp.exp_const_plain(spec, x, e))
     assert mont.to_int(spec, mont.inverse(spec, x[:8])) == [
         pow(v, q - 2, q) for v in vals[:8]]
@@ -153,8 +192,9 @@ def test_wrappers_count_launches_and_reject(cuda):
 
 # -- exp_const and the point kernels -----------------------------------------
 
-# a = 0 and a = 1 at 8 words; the bls12 G1 curves at 12
-CURVES = ["bn254_g1", "stark_g1", "bls12_381_g1", "bls12_377_g1"]
+# a = 0 and a = 1 at 8 words; the bls24 G1 curves at 10, the bls12 at 12
+CURVES = ["bn254_g1", "stark_g1", "bls24_315_g1", "bls24_317_g1",
+          "bls12_381_g1", "bls12_377_g1"]
 
 
 def oracle_add(P, Q, p, a):
@@ -322,9 +362,9 @@ def test_point_kernels_reject(cuda):
                                             device=cuda),
                                 torch.zeros(8, dtype=torch.int32,
                                             device=cuda))
-    bls = curve_ops(cs.get_curve("bls24_315_g1"))  # 10-word Fp
+    bw6 = curve_ops(cs.get_curve("bw6_633_g1"))  # 20-word Fp
     with pytest.raises(NotImplementedError):
-        bls.double(bls.generator_jac(device=cuda))
+        bw6.double(bw6.generator_jac(device=cuda))
 
 
 def vm_state(prog, n_pad, cuda):
@@ -355,11 +395,11 @@ def test_vm_kernel_matches_plain(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("warps", [1, 4, 16])
-@pytest.mark.parametrize("spec", [fs.BN254_FP, *W12[:2]],
+@pytest.mark.parametrize("spec", [fs.BN254_FP, *W10[:2], *W12[:2]],
                          ids=lambda s: s.name)
 def test_vm_wave_kernel_matches_plain_wide(cuda, spec, warps):
     """Random programs with a wide operand window, whose waves are full,
-    at 8 and 12 words and 1, 4 and 16 warps a block."""
+    at 8, 10 and 12 words and 1, 4 and 16 warps a block."""
     prog = vm.schedule(vm.random_program(spec, 2900, seed=23, window=64),
                        warps)
     state = vm_state(prog, 2 * prog.tile, cuda)
@@ -379,9 +419,9 @@ def test_vm_kernel_rejects(cuda):
         vm.vm_execute(prog, state.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError):  # the kernel runs scheduled programs
         vm.vm_execute(built, state)
-    bls = vm.schedule(vm.random_program(fs.BLS24_315_FP, 50, seed=3), 8)
-    with pytest.raises(NotImplementedError):  # 10-word Fp
-        vm.vm_execute(bls, torch.zeros((bls.n_entry, bls.tile, 10),
+    bw6 = vm.schedule(vm.random_program(fs.BW6_633_FP, 50, seed=3), 8)
+    with pytest.raises(NotImplementedError):  # 20-word Fp
+        vm.vm_execute(bw6, torch.zeros((bw6.n_entry, bw6.tile, 20),
                                        dtype=torch.int32, device=cuda))
     prog12 = vm.schedule(vm.random_program(fs.BLS12_381_FP, 50, seed=3), 8)
     assert prog12.n_entry == prog.n_entry
@@ -399,6 +439,46 @@ def test_vm_kernel_matches_plain_12_words(cuda, spec):
     got = vm.vm_execute(prog, state)
     assert vm.vm_execute.launches_by_width[12] == before + 1
     assert torch.equal(got, vm.vm_execute_plain(prog, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", W10[:2], ids=lambda s: s.name)
+def test_vm_kernel_matches_plain_10_words(cuda, spec):
+    """The random program of all six ops at 10 words (bls24 Fp): the
+    entry rows and outputs are 40-byte rows, read and written by 8-byte
+    loads."""
+    prog = vm.schedule(vm.random_program(spec, 2900, seed=21), 8)
+    state = vm_state(prog, 3 * prog.tile, cuda)
+    before = vm.vm_execute.launches_by_width.get(10, 0)
+    got = vm.vm_execute(prog, state)
+    assert vm.vm_execute.launches_by_width[10] == before + 1
+    assert torch.equal(got, vm.vm_execute_plain(prog, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bls24_315", "bls24_317"])
+def test_bls24_pair_on_card_equals_golden(cuda, name):
+    """e(G1, G2) through the 10-word VM kernel, G2 over E4 composed of
+    10-word products, and the 2-pair check e(P, Q) e(-P, Q) == 1."""
+    import json
+    import os
+
+    fix = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "gt_golden.json")
+    with open(fix) as f:
+        want = json.load(f)[name]["generator"]
+    g1 = curve_ops(cs.get_curve(f"{name}_g1")).generator_affine(device=cuda)
+    g2 = g2_curve(name, cuda).generator_affine(device=cuda)
+    before = vm.vm_execute.launches_by_width.get(10, 0)
+    P = Affine(g1.x[None], g1.y[None])
+    z = pairing_api.pair(name, P, g2.x[None], g2.y[None])
+    assert vm.vm_execute.launches_by_width[10] == before + 1
+    assert gt_bytes.gt_to_bytes(name, z)[0].hex() == want
+    fp = cs.get_curve(f"{name}_g1").fp
+    P2 = Affine(torch.cat([P.x, P.x]),
+                torch.cat([P.y, mont.neg(fp, P.y)]))
+    QX, QY = (torch.cat([c[None], c[None]]) for c in g2)
+    assert bool(pairing_api.pairing_check(name, P2, QX, QY))
 
 
 @pytest.mark.cuda
@@ -855,7 +935,8 @@ def test_sis_on_card_equals_cpu(cuda, name):
 
 # -- the redesigned exp_const and jac_double2 -----------------------------------
 
-EXP_FIELDS = [fs.BN254_FP, fs.BLS12_381_FP, fs.BLS12_377_FP]
+EXP_FIELDS = [fs.BN254_FP, fs.BLS24_315_FP, fs.BLS24_317_FP,
+              fs.BLS12_381_FP, fs.BLS12_377_FP]
 
 
 def exp_inputs(spec, n, seed, cuda):

@@ -32,7 +32,10 @@ from gnark_crypto_tpu_torch.specs import field as fs
 
 CPU = "cpu"
 M32 = (1 << 32) - 1
-FIELDS = [fs.BN254_FP, fs.BLS12_381_FP, fs.BLS12_377_FP]
+# 8 words (T = 1 on the card), 10 and 12 (a team of T = 4; at 10 words each
+# lane holds K = 3 words, the twelfth slot zero)
+FIELDS = [fs.BN254_FP, fs.BLS24_315_FP, fs.BLS24_317_FP, fs.BLS12_381_FP,
+          fs.BLS12_377_FP]
 CURVES = [("bn254", -1), ("bls12_381", -1), ("bls12_377", -5)]
 CHUNK = 4  # csrc/exp.cu kChunk
 

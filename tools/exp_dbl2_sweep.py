@@ -16,9 +16,10 @@ kernel (a ``gct::mont_mul_ilp`` in each role's loop). Then, with CUDA
 events (median of 5 rounds of 5 launches, queued behind a spin kernel so
 that the host's time a call does not count):
 
-* ``exp_const`` at 128 lanes, e = q - 2 (the MSM seed), on bn254,
-  bls12-381 and bls12-377 Fp, for every team size T (1, 2, 4, 8) at 32,
-  64 and 128 lanes a role: ms and us per serial square;
+* ``exp_const`` at 128 lanes, e = q - 2 (the MSM seed), on bn254 (8
+  words), bls24-315 and bls24-317 (10) and bls12-381 and bls12-377 (12)
+  Fp, for every team size T (1, 2, 4, 8) at 32, 64 and 128 lanes a role:
+  ms and us per serial square;
 * ``jac_double2`` at 2^16 lanes (the G2 bases' ladder) for the three
   (words, u^2) pairs, one thread or a pair of threads a point, with
   ``gct::mont_mul`` or the column product, at 64, 128 and 256 threads a
@@ -52,7 +53,8 @@ sys.path.insert(0, os.environ.get("GCT_ROOT") or str(ROOT))
 SEED = 20261018
 EXP_LANES = 128
 DBL_LANES = 1 << 16
-FIELDS = ("bn254_fp", "bls12_381_fp", "bls12_377_fp")
+FIELDS = ("bn254_fp", "bls24_315_fp", "bls24_317_fp", "bls12_381_fp",
+          "bls12_377_fp")
 G2 = (("bn254", 8, -1), ("bls12_381", 12, -1), ("bls12_377", 12, -5))
 
 
