@@ -56,11 +56,23 @@ the same card, bit for bit (the field is exact: the tolerance is 0):
   ops, its products on the 10-word ``mont_mul``): the G1 MSM at 2^12,
   2^16 and 2^20 with ``batch_scalar_mul`` at 2^16; the pairing as for
   bls12 at 2048 pairs, tampered, at batch 2 and against the golden bytes,
-  Q_i = [b_i]G2 by the E4 ``scalar_mul`` on the card (sampled lanes, b =
-  2, 3, r - 1, 1 and 7 among them, against a Python-int Fp4 ladder); KZG
-  as for bn254, bls24-315
+  Q_i = [b_i]G2 by the E4 ``scalar_mul`` on the card (b below 2^32: the
+  E4 ladder costs ~0.15 s a bit; sampled lanes, b = 2, 3, 2^32 - 1, 1 and
+  7 among them, against a Python-int Fp4 ladder); KZG as for bn254 (alpha
+  below 2^32, for the same ladder), bls24-315
   (the inner curve of gnark's 2-chain with bw6-633) at 2^20 and bls24-317
-  at 2^16.
+  at 2^16;
+* bw6-761 and bw6-633 (24- and 20-word Fp, the 24- and 20-word
+  instantiations of the field, exponent, G1 point and VM kernels; G2 is a
+  curve over Fp, on the same kernels; GT is E6): the G1 MSM at 2^12, 2^16
+  and 2^20 with ``batch_scalar_mul`` at 2^16, and the bw6-761 G2 MSM at
+  2^12 and 2^16 (a Groth16 prover's [B]_2), as for bn254's G1; the
+  pairing as for bls24 at 2048 pairs, tampered, at batch 2 and against
+  the golden bytes, Q_i = [b_i]G2 by the G2 ``scalar_mul`` (sampled
+  lanes, b = 2, 3, r - 1, 1 and 7 among them, against a Python-int
+  ladder), with ``gt_exp`` and ``gt_is_in_subgroup`` on the golden
+  element; KZG as for bn254, bw6-761 at 2^20 and bw6-633 at 2^16 (the Fr
+  products on the 12- and 10-word ``mont_mul``).
 
 Phases:
 
@@ -68,16 +80,22 @@ Phases:
    read just after (the MSM paths' wall time and peak memory per size and
    the KZG calls' wall times are taken here);
 2. checks: each kernel against its plain version at the main path's
-   shapes (the MSM kernels on the inputs they received in a second 2^20
-   MSM); each transform against the plain radix-2 stages, round trips and
+   shapes (the MSM kernels on the inputs they received in a second MSM at
+   the path's second size, ``jac_add`` on its call with the most lanes
+   whose operands are both finite, in that MSM or a second
+   ``batch_scalar_mul``; that MSM's window fold whole, but on its first 4
+   windows on bw6-761 G2, whose width G1 holds whole; the other folds
+   whole at 8 words and on their first 4 windows at 10-24 words); each
+   transform against the plain radix-2 stages, round trips and
    Python-integer samples; each MSM against msm([k_i]G, s) =
    [sum s_i k_i mod r]G, a 2^8 random-point MSM against a Python-int curve
    oracle, and ``batch_scalar_mul`` lanes against Python integers; each
    pairing against the golden bytes or its expected check; the wave VM
    kernel on the 2048-pair chain's ``product`` launch and on two random
    programs of all six ops, scheduled into waves of 8 and (with a wide
-   operand window) 16 rows (for bls24 at 10 words and bls12 at 12, with
-   ``mont_mul`` on the widest product of their MSM paths); the five Fp2
+   operand window) 16 rows (for bls24 at 10 words, bls12 at 12 and bw6 at
+   20 and 24, with ``mont_mul`` on the widest product of their MSM paths);
+   ``gt_exp`` and ``gt_is_in_subgroup`` on bw6's golden GT; the five Fp2
    kernels on the inputs they received in a second 2^16 G2 MSM (the fold
    on its first 4 windows), on each of the three curves; the KZG results
    against alpha-oracle points and their expected verdicts; the four
@@ -98,9 +116,10 @@ Phases:
 Prints the card's name and power limit, the build time, the launches of
 every path, the number of checks and the run's seconds, a ``timings`` JSON
 line, a ``kernels`` JSON line (a kernel built at several widths has a row
-per width, the 10-word one named with ``_w10`` and the 12-word one with
-``_w12``; their numbers from the bls24-315 and bls12-381 paths, bls24-317's
-and bls12-377's in the timings line) and, last, the device line. Exits
+per width, the 10-, 12-, 20- and 24-word ones named with ``_w10``,
+``_w12``, ``_w20`` and ``_w24``; their numbers from the bls24-315,
+bls12-381, bw6-633 and bw6-761 paths, bls24-317's and bls12-377's in the
+timings line) and, last, the device line. Exits
 non-zero, with no result, without a CUDA card or without the package
 beside it.
 """
@@ -129,13 +148,15 @@ W12_KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double",
                "vm_execute", "jac_add2", "jac_double2", "affine_prep2",
                "affine_finish2", "jac_fold_windows2")
 W12 = "_w12"
-# the kernels built at 10 words too (not the Fp2 ones: bls24's G2 is over
-# Fp4); their 10-word rows are named with W10
+# the kernels built at 10, 20 and 24 words too (not the Fp2 ones: bls24's
+# G2 is over Fp4, bw6's over Fp); their 10-word rows are named with W10
 W10_KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double",
                "affine_prep", "affine_finish", "jac_fold_windows",
                "vm_execute")
 W10 = "_w10"
-SUFFIX = {8: "", 10: W10, 12: W12}
+# their 20- and 24-word rows (bw6-633 and bw6-761 Fp, G1 and G2)
+W20, W24 = "_w20", "_w24"
+SUFFIX = {8: "", 10: W10, 12: W12, 20: W20, 24: W24}
 
 
 def mads_per_product(words: int) -> int:
@@ -147,7 +168,7 @@ def mads_per_product(words: int) -> int:
 def exp_design(words: int) -> str:
     """exp_const's design at a width, as csrc/exp.cu fixes it (kTeam,
     kLanes)."""
-    team = {8: 1, 10: 4, 12: 4}[words]
+    team = {8: 1, 10: 4, 12: 4, 20: 4, 24: 4}[words]
     product = "the column product" if team == 1 else "a team product"
     return (f"right to left, T={team} lanes an element ({product}), the "
             "multiplies on warps of their own, 32 lanes a role")
@@ -197,13 +218,49 @@ def oracle_add(P, Q, p: int, a: int):
 
 
 def oracle_mul(P, k: int, p: int, a: int):
-    acc = None
-    while k:
-        if k & 1:
-            acc = oracle_add(acc, P, p, a)
-        P = oracle_add(P, P, p, a)
-        k >>= 1
-    return acc
+    """[k]P with Python ints (k >= 0; None = infinity): MSB-first
+    double-and-add in Jacobian coordinates, one inversion at the end (an
+    inversion a step made the 761-bit oracles take seconds)."""
+    if P is None or k == 0:
+        return None
+    x2, y2 = P
+    acc = None   # (X, Y, Z), x = X / Z^2, y = Y / Z^3
+    for bit in bin(k)[2:]:
+        if acc is not None:
+            X, Y, Z = acc
+            if Y == 0:
+                acc = None
+            else:
+                xx, yy, zz = X * X % p, Y * Y % p, Z * Z % p
+                s = 4 * X * yy % p
+                m = (3 * xx + a * zz * zz) % p
+                X3 = (m * m - 2 * s) % p
+                acc = (X3, (m * (s - X3) - 8 * yy * yy) % p, 2 * Y * Z % p)
+        if bit == "1":
+            if acc is None:
+                acc = (x2, y2, 1)
+                continue
+            X, Y, Z = acc
+            zz = Z * Z % p
+            h = (x2 * zz - X) % p
+            r = (y2 * zz * Z - Y) % p
+            if h == 0:
+                # P itself (double it) or -P (infinity)
+                acc = None if r else oracle_add((x2, y2), (x2, y2), p, a)
+                if acc is not None:
+                    acc = (*acc, 1)
+                continue
+            hh = h * h % p
+            hhh = h * hh % p
+            v = X * hh % p
+            X3 = (r * r - hhh - 2 * v) % p
+            acc = (X3, (r * (v - X3) - Y * hhh) % p, Z * h % p)
+    if acc is None:
+        return None
+    X, Y, Z = acc
+    zi = pow(Z, -1, p)
+    zi2 = zi * zi % p
+    return X * zi2 % p, Y * zi2 * zi % p
 
 
 def random_scalars(nprng, spec, n: int, dev):
@@ -235,18 +292,29 @@ def width(args) -> int:
     return next(a.shape[0] for a in args if hasattr(a, "shape"))
 
 
+def finite_pairs(args) -> int:
+    """Lanes of a ``jac_add`` call whose operands are both finite (Z != 0):
+    the lanes that run the add's formula, not its early return."""
+    import torch
+
+    z1, z2 = args[4], args[7]
+    return int((torch.any(z1 != 0, -1) & torch.any(z2 != 0, -1)).sum())
+
+
 class Recorder:
     """Stands in for a kernel wrapper in its module: calls it and, while
-    ``on``, keeps the arguments of the widest call (first dimension of the
-    first tensor argument), or of every call with ``keep_all``; with
-    ``words``, only of calls on a field of that many words (the wrapper's
-    first argument, a field spec)."""
+    ``on``, keeps the arguments of the call of the highest ``score`` (by
+    default the widest: the first dimension of the first tensor argument),
+    or of every call with ``keep_all``; with ``words``, only of calls on a
+    field of that many words (the wrapper's first argument, a field
+    spec)."""
 
     def __init__(self, module, name: str, keep_all: bool = False,
-                 words: int | None = None):
+                 words: int | None = None, score=width):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.keep_all, self.on, self.words = keep_all, False, words
+        self.score = score
         self.args, self.calls = None, []
 
     def __call__(self, *args):
@@ -255,9 +323,9 @@ class Recorder:
             if self.keep_all:
                 self.calls.append(args)
             else:
-                n = width(args)
-                if self.args is None or n > self.width:
-                    self.args, self.width = args, n
+                n = self.score(args)
+                if self.args is None or n > self.best:
+                    self.args, self.best = args, n
         return self.fn(*args)
 
     @property
@@ -291,10 +359,11 @@ class MsmSlice:
 
     KERNELS = ("exp_const", "jac_add", "jac_double", "affine_prep",
                "affine_finish", "jac_fold_windows")
+    FOLD_WINDOWS = 4   # windows of the other folds' check at 10-24 words
 
     def __init__(self, dev, nprng, base_log: int = 16,
                  sizes=(16, 20, 24), stark_log: int | None = 12,
-                 name: str = "bn254_g1"):
+                 name: str = "bn254_g1", whole_fold: bool = True):
         import torch
 
         from gnark_crypto_tpu_torch.curve.jacobian import curve_ops
@@ -321,7 +390,9 @@ class MsmSlice:
                           Recorder(point_add, "jac_fold_windows",
                                    keep_all=True)]
         self.recorders += [Recorder(point_add, k, words=self.W) for k in
-                           ("jac_add", "affine_prep", "affine_finish")]
+                           ("affine_prep", "affine_finish")]
+        self.recorders.append(Recorder(point_add, "jac_add", words=self.W,
+                                       score=finite_pairs))
         self.plain = {"exp_const": field_exp.exp_const_plain,
                       **{k: getattr(point_add, f"{k}_plain")
                          for k in self.KERNELS if k != "exp_const"}}
@@ -336,10 +407,22 @@ class MsmSlice:
         # kernels are checked and timed on a second MSM at sizes[1]
         self.base_log, self.sizes, self.stark_log = base_log, sizes, \
             stark_log
+        # the second MSM's fold held whole against the plain fold, or (a
+        # second path at a width already held whole) on its first windows
+        self.whole_fold = whole_fold
 
     def kname(self, name: str) -> str:
         """The kernel row of ``name`` at this path's width."""
         return name + self.suffix
+
+    def fold_prefix(self, args):
+        """A recorded fold's arguments cut to its first FOLD_WINDOWS
+        windows: the plain fold of a whole 2^12-2^20 MSM at 10-24 words is
+        2,000-3,400 serial plain products, 10-33 s on the card."""
+        spec, a, x, y, z, c = args
+        w = self.FOLD_WINDOWS
+        return (spec, a, x[:w].contiguous(), y[:w].contiguous(),
+                z[:w].contiguous(), c)
 
     # -- inputs --------------------------------------------------------------
     def multiples(self, spec, n: int):
@@ -465,12 +548,22 @@ class MsmSlice:
             self.rec[k].on = True
         k20 = self.sizes[1]
         again = pp.msm(self.spec, self.tiled(k20), self.s24[:1 << k20])
+        # jac_add also on the ladder's adds, whose lanes are mostly finite
+        # (a wide MSM's phase-2 adds are mostly at infinity at 20-24 words)
+        for k in ("exp_const", "affine_prep", "affine_finish"):
+            self.rec[k].on = False
+        bsm = pp.batch_scalar_mul(
+            self.spec, Affine(self.p16.x[0], self.p16.y[0]),
+            self.s24[:1 << self.base_log])
         for r_ in self.recorders:
             r_.on = False
             r_.remove()
         check(all(torch.equal(u, v)
                   for u, v in zip(again, self.results[k20])),
               f"msm {name} 2^{k20} run twice: the same Jacobian coordinates")
+        check(all(torch.equal(u, v) for u, v in zip(bsm, self.bsm)),
+              f"batch_scalar_mul {name} 2^{self.base_log} run twice: the "
+              "same Jacobian coordinates")
         recorded = ("exp_const", "jac_add", "affine_prep", "affine_finish")
         if "mont_mul" in self.rec:
             recorded += ("mont_mul",)
@@ -479,15 +572,17 @@ class MsmSlice:
                                     *self.curve.from_affine(self.p16))
         folds = self.rec["jac_fold_windows"].calls
         # one fold per MSM chunk: 2^16, 2^20, four chunks of 2^24, stark
-        # (bn254); 2^12, 2^16, 2^20 (bls12, whose other folds are not held
-        # against the plain fold: 12-word plain products cost ~10 s a fold)
+        # (bn254); 2^12, 2^16, 2^20 (bls12, bls24, bw6 G1); 2^12, 2^16 (bw6
+        # G2). Each is timed whole; the second MSM's fold is the kernel row
+        # and is held whole against the plain fold (but with whole_fold
+        # off), the others too at 8 words and on their first windows at
+        # 10-24 words
         self.fold_args = {f"2^{k}": folds[i]
                           for i, k in enumerate(self.sizes)}
         if self.stark is not None:
             self.fold_args[f"stark 2^{self.stark_log}"] = folds[-1]
-        else:
-            self.fold_args = {f"2^{k20}": folds[1]}
-        self.kargs["jac_fold_windows"] = folds[1]
+        self.kargs["jac_fold_windows"] = (
+            folds[1] if self.whole_fold else self.fold_prefix(folds[1]))
         plain = self.plain
         self.plain_ms = {}
         for k, args in self.kargs.items():
@@ -504,10 +599,15 @@ class MsmSlice:
                         f"{self.tag}{width(args)} lanes, output {i}")
         for tag, args in self.fold_args.items():
             if args is not folds[1]:
+                what = f"{self.tag}{tag} fold"
+                if self.W != 8:
+                    args = self.fold_prefix(args)
+                    what += f", first {self.FOLD_WINDOWS} windows"
                 for i, (o, w) in enumerate(zip(
                         pa.jac_fold_windows(*args),
                         pa.jac_fold_windows_plain(*args))):
-                    compare("jac_fold_windows", o, w, f"{tag}, output {i}")
+                    compare(self.kname("jac_fold_windows"), o, w,
+                            f"{what}, output {i}")
         if self.stark is None:
             return
         stark_dbl = (self.stark.fp, self.stark.a,
@@ -548,10 +648,9 @@ class MsmSlice:
             + int(eq.sum()) * (4 * ELEM_BYTES + 4)
             + (keep_pre + keep_suf) * 2 * ELEM_BYTES,
             3 * mm * int(generic.sum()))
-        spec, a, *c = self.kargs["jac_add"]
-        both = ~(torch.all(c[2] == 0, -1) | torch.all(c[5] == 0, -1))
-        out["jac_add"] = (c[0].shape[0] * 9 * ELEM_BYTES,
-                          16 * mm * int(both.sum()))
+        self.finite_lanes = finite_pairs(self.kargs["jac_add"])
+        out["jac_add"] = (width(self.kargs["jac_add"]) * 9 * ELEM_BYTES,
+                          16 * mm * self.finite_lanes)
         spec, a, *c = self.kargs["jac_double"]
         out["jac_double"] = (c[0].shape[0] * 6 * ELEM_BYTES,
                              (7 if a == 0 else 10) * mm * c[0].shape[0])
@@ -572,33 +671,31 @@ class MsmSlice:
     def timings(self, cuda_ms, timings, kernel_rows):
         torch, pp = self.torch, self.pp
         for name, (nbytes, mads, *serial) in self.bounds().items():
-            kname = name.split(" ")[0]
-            args = (self.fold_args[name.split(" ", 1)[1]]
-                    if kname == "jac_fold_windows" else self.kargs[kname])
-            fn, pfn = self.wrappers[kname], self.plain[kname]
+            # a whole fold's tag (its MSM's size) after the kernel's name
+            kname, _, tag = name.partition(" ")
+            args = self.fold_args[tag] if tag else self.kargs[kname]
             b_ms, b_by = bound(nbytes, mads)
-            # the plain version's time from its run in checks() where it
-            # ran on these inputs (host clock, synchronised)
-            plain_ms = (self.plain_ms[kname]
-                        if args is self.kargs[kname]
-                        else cuda_ms(lambda: pfn(*args), reps=1, rounds=1))
-            row = {"ms": cuda_ms(lambda: fn(*args), reps=5),
-                   "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "lanes": width(args)}
+            row = {"ms": cuda_ms(lambda: self.wrappers[kname](*args),
+                                 reps=5),
+                   "bound_ms": b_ms, "bound_by": b_by, "lanes": width(args)}
+            recorded = args is self.kargs[kname]
+            if recorded:
+                # the plain version's time from its run in checks() on
+                # these inputs (host clock, synchronised)
+                row["plain_ms"] = self.plain_ms[kname]
             if kname == "exp_const":
                 row["serial_products"] = self.exp_serial
                 row["us_per_serial_product"] = (row["ms"] * 1e3
                                                 / self.exp_serial)
                 row["design"] = exp_design(self.W)
+            if kname == "jac_add":
+                row["finite_lanes"] = self.finite_lanes
             if serial:
                 row["serial_products"] = serial[0]
-            label = self.tag + (name if kname == "jac_fold_windows" else (
-                f"{name} {width(args)} lanes"))
-            timings[label] = row
-            row_name = self.kname(kname)
-            if (row_name not in kernel_rows
-                    or name.endswith(f"2^{self.sizes[1]}")):
-                kernel_rows[row_name] = row
+            timings[self.tag + (f"{name} fold" if tag else (
+                f"{name} {width(args)} lanes"))] = row
+            if recorded:
+                kernel_rows[self.kname(kname)] = row
         curve = self.spec.name.removesuffix("_g1")
         for k in self.sizes:
             # the main path's run was the first at its size; time it again
@@ -698,9 +795,11 @@ class PairingSlice:
         self.kernels = tuple(k + self.SUFFIX for k in self.KERNELS)
         self.tag = f"{self.NAME} " if self.SUFFIX else ""
 
+    G2_BOUND = None   # the G2 scalars are below this bound, or below r
+
     def g2_scalars(self, rng, n: int) -> list[int]:
         """The G2 scalars b_i of n pairs."""
-        return [rng.randrange(1, self.r) for _ in range(n)]
+        return [rng.randrange(1, self.G2_BOUND or self.r) for _ in range(n)]
 
     G2_BY = "scalar_mul"
 
@@ -722,8 +821,10 @@ class PairingSlice:
         s = g2.fr.from_int([k % self.r for k in ks], mont=False,
                            device=self.dev)
         n = len(ks)
+        # the ladder over the longest scalar's bits
+        nbits = max(k % self.r for k in ks).bit_length()
         return g2.to_affine(g2.scalar_mul(
-            type(Q)(*(c.expand(n, *c.shape) for c in Q)), s))
+            type(Q)(*(c.expand(n, *c.shape) for c in Q)), s, nbits=nbits))
 
     def gt_hex(self, z) -> str:
         from gnark_crypto_tpu_torch.io import gt_bytes
@@ -748,7 +849,8 @@ class PairingSlice:
         b.append(1)
         # then the batch-2 KZG-verify shape and the golden pairs: one ladder
         # for every G1 input and one for every G2 input
-        ka, kb = rng.randrange(1, self.r), rng.randrange(1, self.r)
+        ka = rng.randrange(1, self.r)
+        kb = rng.randrange(1, self.G2_BOUND or self.r)
         self.b = b + [kb, 1, 1, 7]
         P_all = self.g1_mul(a + [ka, -ka * kb, 1, 5])
         Q_all = self.g2_mul(self.b)
@@ -1053,14 +1155,18 @@ class Bls24PairingSlice(PairingSlice):
     the programs 2-6x a bls12 program's rows): 2048 pairs P_i = [a_i]G1 by
     batch_scalar_mul on the 10-word point kernels and Q_i = [b_i]G2 by the
     G2 scalar_mul over E4, composed of field ops (its products on the
-    10-word ``mont_mul``), with b = 2, 3 and r - 1 in the first lanes;
+    10-word ``mont_mul``), with b = 2, 3 and 2^32 - 1 in the first lanes;
     sampled Q_i are held against a Python-int Fp4 ladder. The E4 ladder
     costs ~0.15 s a bit on the card whatever the lanes, so the edge
-    scalars ride in the path's one ladder, not in a ladder of their own."""
+    scalars ride in the path's one ladder, not in a ladder of their own,
+    and the G2 scalars are below 2^32: a 32-bit ladder, not a 253-bit one
+    (the 2048 pairs and their check are the same; every bit is the same
+    double and masked add)."""
 
     SUFFIX = W10
     KERNELS = ("vm_execute", "mont_mul", "exp_const", "jac_add",
                "jac_double")
+    G2_BOUND = 1 << 32
 
     def __init__(self, dev, nprng, name: str, n: int = 2048):
         self.NAME = name
@@ -1068,7 +1174,7 @@ class Bls24PairingSlice(PairingSlice):
         self.oracle = fp4_oracle(name)
 
     def g2_scalars(self, rng, n: int) -> list[int]:
-        return [2, 3, self.r - 1] + super().g2_scalars(rng, n - 3)
+        return [2, 3, self.G2_BOUND - 1] + super().g2_scalars(rng, n - 3)
 
     def checks(self, compare, check):
         super().checks(compare, check)
@@ -1080,9 +1186,68 @@ class Bls24PairingSlice(PairingSlice):
         lanes = [0, 1, 2, 3, n // 2, n - 2, n - 1, n, n + 2, n + 3]
         Q = self.Q_all
         got = g4_affine_ints(g2, type(Q)(*(c[lanes] for c in Q)))
+        bits = self.G2_BOUND.bit_length() - 1
         check(got == [self.oracle(g, self.b[i]) for i in lanes],
               f"{name} G2 (E4) scalar_mul on the card at lanes {lanes} (k = "
-              "2, 3, r - 1, 1, 7 and random) == Python-int Fp4 ladder")
+              f"2, 3, 2^{bits} - 1, 1, 7 and random below 2^{bits}) == "
+              "Python-int Fp4 ladder")
+
+
+class Bw6PairingSlice(PairingSlice):
+    """A bw6 pairing path (24-word Fp for bw6-761, 20-word for bw6-633: the
+    VM kernel at that width, E6 GT, the programs smaller than bls24's):
+    2048 pairs P_i = [a_i]G1 by batch_scalar_mul and Q_i = [b_i]G2 by the
+    G2 scalar_mul, both on the point kernels of that width (bw6's G2 is a
+    curve over Fp), with b = 2, 3 and r - 1 in the first lanes; sampled
+    Q_i are held against the Python-int ladder, and ``gt_exp`` and
+    ``gt_is_in_subgroup`` run on the golden e(G1, G2)."""
+
+    KERNELS = ("vm_execute", "mont_mul", "exp_const", "jac_add",
+               "jac_double")
+
+    def __init__(self, dev, nprng, name: str, n: int = 2048):
+        from gnark_crypto_tpu_torch.specs import curve as cs
+
+        self.NAME = name
+        self.SUFFIX = SUFFIX[cs.get_curve(f"{name}_g1").fp.n_words]
+        super().__init__(dev, nprng, n)
+
+    def g2_scalars(self, rng, n: int) -> list[int]:
+        return [2, 3, self.r - 1] + super().g2_scalars(rng, n - 3)
+
+    def checks(self, compare, check):
+        from gnark_crypto_tpu_torch.field import mont
+        from gnark_crypto_tpu_torch.io import gt_bytes
+
+        super().checks(compare, check)
+        torch, api, name, n = self.torch, self.api, self.NAME, self.n
+        spec = self.g2.spec
+        p = spec.fp.modulus
+        lanes = [0, 1, 2, 3, n // 2, n - 2, n - 1, n, n + 2, n + 3]
+        Q = self.Q_all
+        xs, ys = (mont.to_int(spec.fp, c[lanes]) for c in Q)
+        check(list(zip(xs, ys)) == [oracle_mul((spec.gx, spec.gy),
+                                               self.b[i], p, 0)
+                                    for i in lanes],
+              f"{name} G2 (over Fp) scalar_mul on the card at lanes "
+              f"{lanes} (k = 2, 3, r - 1, 1, 7 and random) == Python-int "
+              "ladder")
+        z = gt_bytes.gt_from_bytes(name, bytes.fromhex(
+            self.golden["generator"]), device=self.dev)
+        z35 = api.gt_exp(name, z, 35)
+        check(self.gt_hex(z35) == self.golden["p5_q7"],
+              f"gt_exp {name}: golden e(G1, G2)^35 == golden "
+              "e([5]G1, [7]G2)")
+        e6 = api.gt_engine(name, self.dev)
+        check(bool(e6.equal(e6.mul(api.gt_exp(name, z, -35), z35),
+                            e6.ones())),
+              f"gt_exp {name}: z^-35 z^35 == 1")
+        bad = z.clone()
+        bad[1, 2] = mont.add(spec.fp, bad[1, 2],
+                             mont.from_int(spec.fp, 1, device=self.dev))
+        check(api.gt_is_in_subgroup(name, torch.stack([z, bad])).tolist()
+              == [True, False], f"gt_is_in_subgroup {name}: the golden "
+              "element True, it with one coefficient plus one False")
 
 
 class G2MsmSlice:
@@ -1338,8 +1503,10 @@ class KzgSlice:
     forms, held against alpha-oracle points and tampered inputs. bn254, or a
     bls12 curve, whose G1 and G2 kernels are the 12-word instantiations
     (``W12``), or a bls24 curve, whose G1 kernels are the 10-word ones
-    (``W10``) and whose G2 over E4 is composed of 10-word products; the Fr
-    products stay at 8 words."""
+    (``W10``) and whose G2 over E4 is composed of 10-word products, or a bw6
+    curve, whose G1 and G2 (over Fp) run on the 24- or 20-word kernels
+    (``W24``, ``W20``). The Fr products are 8-word ones but on bw6, whose Fr
+    is bls12-377's or bls24-315's Fp (12 and 10 words)."""
 
     KERNELS = ("exp_const", "jac_add", "jac_double", "affine_prep",
                "affine_finish", "jac_fold_windows", "vm_execute", "jac_add2",
@@ -1363,12 +1530,19 @@ class KzgSlice:
         self.wall = {}
         W = self.g1.spec.fp.n_words
         self.e4 = name.startswith("bls24")
+        # alpha's bits are new_srs's [alpha]G2 ladder: over E4 (field ops,
+        # ~0.15 s a bit on the card) alpha is below 2^32
+        self.alpha_bound = 1 << 32 if self.e4 else self.r
+        self.g2_fp = name.startswith("bw6")
         kernels = self.KERNELS
-        if self.e4:   # G2 over E4: field ops, its products on mont_mul
+        if self.e4 or self.g2_fp:
+            # G2 over E4 (field ops, its products on mont_mul) or over Fp
+            # (the G1 kernels): no Fp2 kernel
             kernels = tuple(k for k in kernels
                             if not k.endswith("2")) + ("mont_mul",)
-        # Fr (8 words on every curve here) through mont_mul
-        self.kernels = ("mont_mul",) + tuple(k + SUFFIX[W] for k in kernels)
+        # the Fr products through mont_mul
+        self.kernels = ("mont_mul" + SUFFIX[self.g1.spec.fr.n_words],) + \
+            tuple(k + SUFFIX[W] for k in kernels)
 
     def timed(self, label, fn):
         self.torch.cuda.synchronize()
@@ -1389,7 +1563,7 @@ class KzgSlice:
         torch, kzg, name, K = self.torch, self.kzg, self.NAME, self.K
         t0 = time.perf_counter()
         rng = random.Random(SEED + 5)
-        self.alpha = rng.randrange(2, self.r)
+        self.alpha = rng.randrange(2, self.alpha_bound)
         self.srs = srs = self.timed("new_srs", lambda: kzg.new_srs(
             name, self.n, self.alpha, device=self.dev))
         self.polys = torch.stack([
@@ -1476,6 +1650,12 @@ class KzgSlice:
             check(g4_affine_ints(self.g2, self.srs.vk.alpha_g2)
                   == [fp4_oracle(self.NAME)((spec2.gx, spec2.gy), alpha)],
                   f"kzg {name}: SRS [alpha]G2 == Python-int Fp4 ladder")
+        elif self.g2_fp:
+            check(self.g1_ints(self.srs.vk.alpha_g2)
+                  == [oracle_mul((spec2.gx, spec2.gy), alpha,
+                                 spec2.fp.modulus, 0)],
+                  f"kzg {name}: SRS [alpha]G2 (over Fp) == Python-int "
+                  "ladder")
         else:
             check(g2_affine_ints(self.g2, self.srs.vk.alpha_g2)
                   == [fp2_oracle_mul((tuple(spec2.gx), tuple(spec2.gy)),
@@ -1830,7 +2010,11 @@ def main() -> int:
 
     t_run = t0 = time.perf_counter()
     build_dir = build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s ({build_dir})",
+    build_s = time.perf_counter() - t0
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s ({build_dir}); "
+          "each source's nvcc wall time, all compiling at once: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(
+              build.build_seconds.items(), key=lambda kv: kv[1])),
           flush=True)
 
     spec = fs.BN254_FR
@@ -1876,6 +2060,21 @@ def main() -> int:
     bls24_pair = [Bls24PairingSlice(dev, bls24_rng, c) for c in bls24]
     bls24_kzg = [KzgSlice(dev, bls24_rng, "bls24_315", log_n=20),
                  KzgSlice(dev, bls24_rng, "bls24_317", log_n=16)]
+    # bw6-761 at 24-word Fp and bw6-633 at 20 (the outer curves of gnark's
+    # 2-chains over bls12-377 and bls24-315): the G1 MSM at 2^12, 2^16 and
+    # 2^20, the G2 MSM of bw6-761 (G2 over Fp, on the same kernels) at 2^16
+    # (a Groth16 prover's [B]_2), the pairing (E6 GT), and KZG: bw6-761 at
+    # 2^20, bw6-633 at 2^16
+    bw6_rng = np.random.default_rng(SEED + 6)
+    bw6 = ("bw6_761", "bw6_633")
+    bw6_msm = [MsmSlice(dev, bw6_rng, sizes=(12, 16, 20), stark_log=None,
+                        name=f"{c}_g1") for c in bw6]
+    # (its 24-word fold is held whole on bw6-761 G1's)
+    bw6_msm.append(MsmSlice(dev, bw6_rng, sizes=(12, 16), stark_log=None,
+                            name="bw6_761_g2", whole_fold=False))
+    bw6_pair = [Bw6PairingSlice(dev, bw6_rng, c) for c in bw6]
+    bw6_kzg = [KzgSlice(dev, bw6_rng, "bw6_761", log_n=20),
+               KzgSlice(dev, bw6_rng, "bw6_633", log_n=16)]
     ntt_kernels = ("mont_mul", "ntt_radix2_stage", "ntt_radix2_block",
                    "ntt_four_step")
     wrappers = {"mont_mul": kernels.mont_mul,
@@ -1886,9 +2085,9 @@ def main() -> int:
                 **small.wrappers}
 
     def read_counts() -> dict:
-        """{kernel row: launches}: a kernel built at 8, 10 and 12 words
-        counts its 8-word launches under its name and its 10- and 12-word
-        ones under name + W10 and name + W12."""
+        """{kernel row: launches}: a kernel built at several widths counts
+        its 8-word launches under its name and its 10-, 12-, 20- and
+        24-word ones under name + W10, W12, W20 and W24."""
         counts = {}
         for name, w in wrappers.items():
             if name in W12_KERNELS:
@@ -1896,6 +2095,8 @@ def main() -> int:
                 counts[name + W12] = w.launches_by_width.get(12, 0)
                 if name in W10_KERNELS:
                     counts[name + W10] = w.launches_by_width.get(10, 0)
+                    counts[name + W20] = w.launches_by_width.get(20, 0)
+                    counts[name + W24] = w.launches_by_width.get(24, 0)
             else:
                 counts[name] = w.launches
         return counts
@@ -1970,10 +2171,18 @@ def main() -> int:
                      for sl in bls24_pair]
     bls24_counts += [drive(f"{sl.NAME} KZG", sl.main_path, sl.kernels)
                      for sl in bls24_kzg]
+    bw6_counts = [drive(f"{sl.spec.name} MSM", sl.main_path, sl.kernels)
+                  for sl in bw6_msm]
+    bw6_counts += [drive(f"{sl.NAME} pairing", sl.main_path, sl.kernels)
+                   for sl in bw6_pair]
+    bw6_counts += [drive(f"{sl.NAME} KZG", sl.main_path, sl.kernels)
+                   for sl in bw6_kzg]
     path_counts = (ntt_counts, msm_counts, pair_counts, g2_counts,
-                   kzg_counts, small_counts, *bls_counts, *bls24_counts)
+                   kzg_counts, small_counts, *bls_counts, *bls24_counts,
+                   *bw6_counts)
     row_names = (list(wrappers) + [k + W12 for k in W12_KERNELS]
-                 + [k + W10 for k in W10_KERNELS])
+                 + [k + W10 for k in W10_KERNELS]
+                 + [k + w for w in (W20, W24) for k in W10_KERNELS])
     launches = {name: sum(c[name] for c in path_counts)
                 for name in row_names}
     for name in W12_KERNELS:
@@ -1983,12 +2192,32 @@ def main() -> int:
         check(sum(c[name + W10] for c in bls24_counts) > 0,
               f"{name} launched at 10 words on the bls24 paths "
               f"({launches[name + W10]})")
+        for w in (W20, W24):
+            check(sum(c[name + w] for c in bw6_counts) > 0,
+                  f"{name} launched at {w[2:]} words on the bw6 paths "
+                  f"({launches[name + w]})")
     print("launches by path: " + json.dumps(
         {"ntt": ntt_counts, "msm": msm_counts, "pairing": pair_counts,
          "g2_msm": g2_counts, "kzg": kzg_counts, "small": small_counts,
-         "bls12": bls_counts, "bls24": bls24_counts}), flush=True)
+         "bls12": bls_counts, "bls24": bls24_counts, "bw6": bw6_counts}),
+          flush=True)
 
     # ---------------------------------------------------------------- phase 2
+    # seconds of each step of phases 2 and 3, printed at the end
+    spent = {"build": build_s, "phase 1": time.perf_counter() - t_run
+             - build_s}
+    t_step = time.perf_counter()
+
+    def timed(label: str, fn, *args) -> None:
+        t = time.perf_counter()
+        fn(*args)
+        spent[label] = time.perf_counter() - t
+
+    def slice_label(sl) -> str:
+        name = (getattr(sl, "NAME", None) or getattr(sl, "name", None)
+                or getattr(getattr(sl, "spec", None), "name", ""))
+        return f"{type(sl).__name__} {name}".strip()
+
     err = {name: 0 for name in row_names}
 
     def compare(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -2090,14 +2319,12 @@ def main() -> int:
         check(mont.to_int(spec, out20[fft.DIF, False, False][int(rev[i])])
               == acc, f"2^20 DIF output at frequency {i} == Horner sum")
 
-    msm.checks(compare, check)
-    pairing.checks(compare, check)
-    g2msm.checks(compare, check)
-    kzg.checks(compare, check)
-    small.checks(compare, check)
-    for sl in (*bls_msm, *bls_pair, *bls_g2, *bls_kzg, *bls24_msm,
-               *bls24_pair, *bls24_kzg):
-        sl.checks(compare, check)
+    spent["checks NTT"] = time.perf_counter() - t_step
+    for sl in (msm, pairing, g2msm, kzg, small, *bls_msm, *bls_pair,
+               *bls_g2, *bls_kzg, *bls24_msm, *bls24_pair, *bls24_kzg,
+               *bw6_msm, *bw6_pair, *bw6_kzg):
+        timed(f"checks {slice_label(sl)}", sl.checks, compare, check)
+    t_step = time.perf_counter()
 
     # ---------------------------------------------------------------- phase 3
     def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
@@ -2190,23 +2417,32 @@ def main() -> int:
                                                   False), reps=1, rounds=1)}
         del b
 
-    msm.timings(cuda_ms, timings, kernel_rows)
-    pairing.timings(cuda_ms, timings, kernel_rows)
-    g2msm.timings(cuda_ms, timings, kernel_rows)
-    kzg.timings(cuda_ms, timings, kernel_rows)
-    small.timings(cuda_ms, timings, kernel_rows)
+    spent["timings NTT"] = time.perf_counter() - t_step
+    for sl in (msm, pairing, g2msm, kzg, small):
+        timed(f"timings {slice_label(sl)}", sl.timings, cuda_ms, timings,
+              kernel_rows)
     # the kernels line takes each 12-word row from bls12-381; bls12-377's
     # rows are in the timings line
     for sl, into in ((bls_msm[0], kernel_rows), (bls_msm[1], {}),
                      (bls_pair[0], kernel_rows), (bls_pair[1], {}),
                      (bls_g2[0], kernel_rows), (bls_g2[1], {}),
                      (bls_kzg[0], {}), (bls_kzg[1], {})):
-        sl.timings(cuda_ms, timings, into)
+        timed(f"timings {slice_label(sl)}", sl.timings, cuda_ms, timings,
+              into)
     # the 10-word rows from bls24-315; bls24-317's in the timings line
     for sl, into in ((bls24_msm[0], kernel_rows), (bls24_msm[1], {}),
                      (bls24_pair[0], kernel_rows), (bls24_pair[1], {}),
                      (bls24_kzg[0], {}), (bls24_kzg[1], {})):
-        sl.timings(cuda_ms, timings, into)
+        timed(f"timings {slice_label(sl)}", sl.timings, cuda_ms, timings,
+              into)
+    # the 24-word rows from bw6-761 and the 20-word ones from bw6-633 (each
+    # curve its own width); the bw6-761 G2 MSM's in the timings line
+    for sl, into in ((bw6_msm[0], kernel_rows), (bw6_msm[1], kernel_rows),
+                     (bw6_msm[2], {}), (bw6_pair[0], kernel_rows),
+                     (bw6_pair[1], kernel_rows), (bw6_kzg[0], {}),
+                     (bw6_kzg[1], {})):
+        timed(f"timings {slice_label(sl)}", sl.timings, cuda_ms, timings,
+              into)
 
     kernel_line = []
     sources = {
@@ -2247,7 +2483,9 @@ def main() -> int:
     }
     for name in row_names:
         r = kernel_rows[name]
-        base = name.removesuffix(W12).removesuffix(W10)
+        base = name
+        for w in (W10, W12, W20, W24):
+            base = base.removesuffix(w)
         kernel_line.append({
             "name": name, "route": "cuda", "source": sources[base][0],
             "replaces": sources[base][1], "launches": launches[name],
@@ -2255,6 +2493,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             **({"design": r["design"]} if "design" in r else {})})
+    print("seconds by step: " + json.dumps(
+        {k: round(v, 2) for k, v in spent.items()}), flush=True)
     print(f"chip_smoke: {len(CHECKS)} checks, {len(FAILURES)} failed, "
           f"{time.perf_counter() - t_run:.2f} s in all (build included)",
           flush=True)

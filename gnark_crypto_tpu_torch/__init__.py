@@ -19,14 +19,18 @@ Ported so far (see ROADMAP.md for the rest):
               kernels (bn254), the f31 and f64 NTT kernels
               (radix2_f31.py, radix2_f64.py); extension-vector NTT
               (fftext.py)
-  curve/      Jacobian group law (G1 on the Fp point kernels; G2 over Fp2
-              in curve/g2.py, on the Fp2 point kernels); GLV scalar
-              splitting (curve/glv.py)
+  curve/      Jacobian group law (G1 on the Fp point kernels; G2 in
+              curve/g2.py: over Fp2 on the Fp2 point kernels, over Fp4
+              for bls24 composed of field ops, over Fp for bw6 on the Fp
+              point kernels); GLV scalar splitting (curve/glv.py)
   msm/        G1 and G2 Pippenger MSM (batch-affine bucket tree)
-  towers/     Fp2/Fp6/Fp12 extension engines, the BN/BLS12 tower and its
-              symbolic twin that assembles VM programs; the small-field
-              E2/E4/E6 towers (smallfield.py)
-  pairing/    bn254/bls12 optimal ate pairing as VM programs; the api facade
+  towers/     extension engines, the BN/BLS12 tower, the BLS24 tower
+              (tower24.py), the BW6 direct sextic tower (tower6.py) and
+              their symbolic twins that assemble VM programs; the
+              small-field E2/E4/E6 towers (smallfield.py)
+  pairing/    the optimal ate pairings of every family (pairing12.py:
+              BN/BLS12/BLS24, pairing6.py: BW6) as VM programs; the api
+              facade
   protocols/  KZG commitment: SRS, commit, open, verify, batch forms
   hashes/     Fiat-Shamir transcript (host); the Ring-SIS hash (sis.py)
   io/         gnark GT byte codec; point encoder (io/marshal.py)
@@ -42,8 +46,7 @@ CURVES = (
     "bw6_633", "bw6_761", "grumpkin", "secp256k1", "secp256r1", "stark",
 )
 
-# The curve families of the reference. This package pairs the BN/BLS12
-# families; BLS24 and BW6 come with a later slice (ROADMAP.md queue 1).
+# The pairing curves of the reference; this package pairs them all.
 PAIRING_CURVES = (
     "bn254", "bls12_381", "bls12_377", "bls24_315", "bls24_317",
     "bw6_761", "bw6_633",

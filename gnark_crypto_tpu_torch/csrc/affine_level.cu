@@ -1,5 +1,6 @@
 // One level of the MSM's batch-affine bucket tree, in two kernels around
-// the batched inversion of the denominators, at W = 8, 10 and 12 words.
+// the batched inversion of the denominators, at W = 8, 10, 12, 20 and 24
+// words.
 //
 // Replaces the Pallas kernels gnark_crypto_tpu/field/pallas/point_add.py
 // `affine_prep` (`_prep_kernel`) and `affine_finish` (`_finish_kernel`).
@@ -7,7 +8,8 @@
 // int32 per lane. One thread per lane of the level (csrc/point.cuh cores).
 //
 // Bounds on the H100: both move far more bytes than they compute (an
-// element is 4W bytes: 32 at W = 8, 40 at W = 10, 48 at W = 12).
+// element is 4W bytes: 32 at W = 8, 40 at W = 10, 48 at W = 12, 80 at
+// W = 20, 96 at W = 24).
 // * affine_prep: reads l_suf and r_pre (4 elements), writes den, num and
 //   the mask bits (2 elements and 4 bytes); 1 product on doubling lanes
 //   only.
@@ -20,6 +22,10 @@
 // maskbits: MB_DBL | MB_INFOUT | MB_PINF | MB_QINF of l_suf + r_pre;
 // treebits: bit 0 eq (l_suf and r_pre are one digit-run), bit 1 l_single,
 // bit 2 r_single (the node spans one run).
+//
+// Many products a kernel: the CIOS keeps its outer loop rolled at 20 and 24
+// words (csrc/field.cuh).
+#define GCT_ROLLED_CIOS_FROM 20
 #include "point.cuh"
 
 namespace {
@@ -94,8 +100,8 @@ unsigned blocks_for(long long n) {
 
 }  // namespace
 
-// n_words: 8, 10 or 12; curve_words: a in Montgomery form (n_words
-// words), then Montgomery one (n_words).
+// n_words: 8, 10, 12, 20 or 24; curve_words: a in Montgomery form
+// (n_words words), then Montgomery one (n_words).
 extern "C" int gct_affine_prep(const void* px, const void* py, const void* qx,
                                const void* qy, void* den, void* num,
                                void* maskbits, long long n, int n_words,

@@ -1,5 +1,5 @@
 // Fixed-exponent power out[i] = x[i]^e (Montgomery in and out), at W = 8,
-// 10 and 12 words.
+// 10, 12, 20 and 24 words.
 //
 // Replaces the Pallas kernel gnark_crypto_tpu/field/pallas/exp.py
 // `exp_const_pallas` and its Fermat form `inverse_small` (x^(q-2), 0 -> 0):
@@ -36,7 +36,8 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunk = 4;  // squares handed over at one barrier
 // lanes an element at W words (10 words: K = 3 words a lane, the twelfth
-// slot zero), and lanes a role in a block
+// slot zero; 20 and 24 words: K = 5 and 6, T dividing W), and lanes a role
+// in a block
 template <int W>
 constexpr int kTeam = W == 8 ? 1 : 4;
 constexpr int kLanes = 32;
@@ -285,8 +286,8 @@ void exp_args(const uint32_t* one_words, const uint32_t* exp_words,
 
 }  // namespace
 
-// n_words: 8, 10 or 12; one_words: Montgomery one (R mod q); exp_words: e's
-// n_words words, e < 2^(32 n_words); nbits: e's bit length.
+// n_words: 8, 10, 12, 20 or 24; one_words: Montgomery one (R mod q);
+// exp_words: e's n_words words, e < 2^(32 n_words); nbits: e's bit length.
 extern "C" int gct_exp_const(const void* x, void* out, long long n,
                              int n_words, const uint32_t* field_words,
                              const uint32_t* one_words,

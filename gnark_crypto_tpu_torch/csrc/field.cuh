@@ -1,8 +1,9 @@
 // Montgomery arithmetic on W x 32-bit words (R = 2^(32W)), as templates
 // over W, instantiated at W = 8 (bn254 Fr/Fp, the stark curve), W = 10
-// (bls24-315 Fp, bls24-317 Fp, bw6-633 Fr) and W = 12 (bls12-381 Fp,
-// bls12-377 Fp, bw6-761 Fr). The wrappers admit a width only for
-// q < 2^(32W-1) (field/kernels.py), which reduce_once needs.
+// (bls24-315 Fp, bls24-317 Fp, bw6-633 Fr), W = 12 (bls12-381 Fp,
+// bls12-377 Fp, bw6-761 Fr), W = 20 (bw6-633 Fp) and W = 24 (bw6-761 Fp).
+// The wrappers admit a width only for q < 2^(32W-1) (field/kernels.py),
+// which reduce_once needs.
 //
 // Shared by every kernel of this directory. Elements are canonical (< q),
 // little-endian words, 4W bytes each, in (N, W) rows: one element is W/4
@@ -10,7 +11,14 @@
 // 10-word row is only 8-byte aligned every second row). The product is a
 // word-serial CIOS with 64-bit partial products: 2W^2 + W 32x32->64
 // multiply-adds per product (W^2 for a*b, W^2 for m*q, W for m): 136 at
-// W = 8, 210 at W = 10, 300 at W = 12.
+// W = 8, 210 at W = 10, 300 at W = 12, 820 at W = 20, 1,176 at W = 24.
+// The CIOS is unrolled whole, except from the width GCT_ROLLED_CIOS_FROM
+// up, where its outer loop over a's words stays rolled. A source whose
+// kernels inline many products defines it before its includes
+// (point_add.cu and affine_level.cu: 20). Unrolled at 20 and 24 words,
+// their kernels spilled up to twice as much and ran up to 2.2x slower,
+// while mont_mul.cu and vm.cu, one product in a kernel or a loop body,
+// ran 1.4-1.5x faster unrolled (PERF.md).
 //
 // Kernels built at 8 words only (the NTT) use the names at the end:
 // W, Elem, FieldConst, field_const and load_elem without a width.
@@ -161,6 +169,42 @@ __device__ __forceinline__ ElemT<W> halve_mod(const ElemT<W>& a,
   return r;
 }
 
+// The width from which the CIOS keeps its outer loop rolled (see the top).
+#ifndef GCT_ROLLED_CIOS_FROM
+#define GCT_ROLLED_CIOS_FROM 0x7fffffff
+#endif
+
+// One outer step of the CIOS: t = (t + ai * b + m * q) / 2^32 with
+// m = (t + ai * b) * qinv mod 2^32; t has W + 2 words, the top two the
+// carries.
+template <int W>
+__device__ __forceinline__ void cios_step(uint32_t ai, const ElemT<W>& b,
+                                          const FieldConstT<W>& fc,
+                                          uint32_t (&t)[W + 2]) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    const uint64_t p = (uint64_t)ai * b.w[j] + t[j] + c;
+    t[j] = (uint32_t)p;
+    c = p >> 32;
+  }
+  uint64_t s = (uint64_t)t[W] + c;
+  t[W] = (uint32_t)s;
+  t[W + 1] = (uint32_t)(s >> 32);
+  const uint32_t m = t[0] * fc.qinv;
+  uint64_t p = (uint64_t)m * fc.q[0] + t[0];
+  c = p >> 32;
+#pragma unroll
+  for (int j = 1; j < W; ++j) {
+    p = (uint64_t)m * fc.q[j] + t[j] + c;
+    t[j - 1] = (uint32_t)p;
+    c = p >> 32;
+  }
+  s = (uint64_t)t[W] + c;
+  t[W - 1] = (uint32_t)s;
+  t[W] = t[W + 1] + (uint32_t)(s >> 32);
+}
+
 // a * b * 2^(-32W) mod q (CIOS). Inputs < q; output canonical.
 template <int W>
 __device__ __forceinline__ ElemT<W> mont_mul(const ElemT<W>& a,
@@ -169,30 +213,20 @@ __device__ __forceinline__ ElemT<W> mont_mul(const ElemT<W>& a,
   uint32_t t[W + 2];
 #pragma unroll
   for (int i = 0; i < W + 2; ++i) t[i] = 0;
+  if constexpr (W >= GCT_ROLLED_CIOS_FROM) {
+    // a's words shift down one a step, so every index stays a constant and
+    // a, b and t stay in registers
+    ElemT<W> x = a;
+#pragma unroll 1
+    for (int i = 0; i < W; ++i) {
+      const uint32_t ai = x.w[0];
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      const uint64_t p = (uint64_t)a.w[i] * b.w[j] + t[j] + c;
-      t[j] = (uint32_t)p;
-      c = p >> 32;
+      for (int k = 0; k + 1 < W; ++k) x.w[k] = x.w[k + 1];
+      cios_step<W>(ai, b, fc, t);
     }
-    uint64_t s = (uint64_t)t[W] + c;
-    t[W] = (uint32_t)s;
-    t[W + 1] = (uint32_t)(s >> 32);
-    const uint32_t m = t[0] * fc.qinv;
-    uint64_t p = (uint64_t)m * fc.q[0] + t[0];
-    c = p >> 32;
+  } else {
 #pragma unroll
-    for (int j = 1; j < W; ++j) {
-      p = (uint64_t)m * fc.q[j] + t[j] + c;
-      t[j - 1] = (uint32_t)p;
-      c = p >> 32;
-    }
-    s = (uint64_t)t[W] + c;
-    t[W - 1] = (uint32_t)s;
-    t[W] = t[W + 1] + (uint32_t)(s >> 32);
+    for (int i = 0; i < W; ++i) cios_step<W>(a.w[i], b, fc, t);
   }
   ElemT<W> r;
 #pragma unroll
@@ -348,6 +382,10 @@ inline int for_width(int n_words, F&& f) {
       return f(std::integral_constant<int, 10>{});
     case 12:
       return f(std::integral_constant<int, 12>{});
+    case 20:
+      return f(std::integral_constant<int, 20>{});
+    case 24:
+      return f(std::integral_constant<int, 24>{});
     default:
       return (int)cudaErrorInvalidValue;
   }

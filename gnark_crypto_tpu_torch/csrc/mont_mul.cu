@@ -1,5 +1,5 @@
 // Batched Montgomery product out[i] = x[i] * y[i] * 2^(-32W) mod q, at
-// W = 8, 10 and 12 words.
+// W = 8, 10, 12, 20 and 24 words.
 //
 // Replaces the Pallas kernel gnark_crypto_tpu/field/pallas/mont_mul.py
 // `mont_mul` (tile body `_mm_tile`): there lazy-carry 11-13-bit limbs in
@@ -9,10 +9,13 @@
 // Bound on the H100: 12W bytes of device memory per product (two inputs,
 // one output of 4W bytes) against 2W^2 + W multiply-adds. At W = 8 (96
 // bytes, 136) a pass at 2^20 is memory-bound (3.35 TB/s) by about 3x over
-// the INT32 rate; at W = 12 (144 bytes, 300) by about 2x. The design keeps
-// the traffic at that minimum: each thread reads its two operands as W/2
-// 16-byte loads, neighbouring threads on neighbouring elements, and writes
-// its result once; the product lives in registers.
+// the INT32 rate; at W = 12 (144 bytes, 300) by about 2x; at W = 20 (240
+// bytes, 820) by about 1.5x and at W = 24 (288 bytes, 1,176) by about
+// 1.2x, where the ~3.4 instructions a multiply-add of this CIOS make issue
+// the likelier limit. The design keeps the traffic at that minimum: each
+// thread reads its two operands as W/4 16-byte loads (W/2 8-byte ones at
+// W = 10), neighbouring threads on neighbouring elements, and writes its
+// result once; the product lives in registers.
 #include "field.cuh"
 
 namespace {
@@ -31,7 +34,8 @@ __global__ void mont_mul_kernel(const uint32_t* __restrict__ x,
 
 }  // namespace
 
-// n_words: 8, 10 or 12; field_words: q's n_words words, then -q^-1 mod 2^32.
+// n_words: 8, 10, 12, 20 or 24; field_words: q's n_words words, then
+// -q^-1 mod 2^32.
 extern "C" int gct_mont_mul(const void* x, const void* y, void* out,
                             long long n, int n_words,
                             const uint32_t* field_words, void* stream) {

@@ -1,6 +1,6 @@
 // Short-Weierstrass point arithmetic on W-word Montgomery elements (W = 8,
-// 10 and 12): the device cores of csrc/point_add.cu and csrc/affine_level.cu,
-// and over Fp2 (csrc/fp2.cuh, 8 and 12 words) of csrc/point_add2.cu and
+// 10, 12, 20 and 24): the device cores of csrc/point_add.cu and
+// csrc/affine_level.cu, and over Fp2 (csrc/fp2.cuh, 8 and 12 words) of csrc/point_add2.cu and
 // csrc/affine_level2.cu. Each core is a template over the element type E
 // (ElemT<W> or Elem2T<W, NR>) and its field constants FC, and calls the
 // field ops by overload, as the JAX package's cores take an ops tuple.

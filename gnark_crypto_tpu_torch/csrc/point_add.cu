@@ -1,5 +1,5 @@
 // Batched Jacobian point add and double, and the MSM's Horner window fold,
-// at W = 8, 10 and 12 words.
+// at W = 8, 10, 12, 20 and 24 words.
 //
 // Replaces the Pallas kernels of gnark_crypto_tpu/field/pallas/point_add.py:
 // `jac_add` (`_kernel`, `_add_core_ops`), `jac_double` (`_dbl_kernel`,
@@ -10,17 +10,24 @@
 // (csrc/point.cuh), and the fold is one thread.
 //
 // Bounds on the H100 (a product is 2W^2 + W multiply-adds: 136 at W = 8,
-// 300 at W = 12):
+// 300 at W = 12, 1,176 at W = 24):
 // * jac_add: 24W bytes in, 12W out, 16 products, so about 7x (W = 8) and
 //   10x (W = 12) over the memory time: bound by operations. The point lives
 //   in registers; spills, if any, show in lib<name>.log of the build (at
-//   W = 12 two points and the temporaries outgrow the 255 registers).
+//   W = 12 two points and the temporaries outgrow the 255 registers; at
+//   W = 20 and 24 the two points alone are 120 and 144 registers, and
+//   what does not fit spills to the thread's local memory, which L1 keeps
+//   near).
 // * jac_double: 12W bytes in and out, 7 products (10 when a != 0): about
 //   even between bytes and operations.
 // * jac_fold_windows: latency. c*(nwin-1) doublings and nwin-1 adds in one
 //   dependent chain, about 2,000 serial products for a bn254 or bls12 MSM
 //   at 2^20; there is no parallel work to spread, and the chain replaces
 //   that many width-1 launches.
+//
+// Many products a kernel: the CIOS keeps its outer loop rolled at 20 and 24
+// words (csrc/field.cuh).
+#define GCT_ROLLED_CIOS_FROM 20
 #include "point.cuh"
 
 namespace {
@@ -109,8 +116,8 @@ unsigned blocks_for(long long n) {
 
 }  // namespace
 
-// n_words: 8, 10 or 12; curve_words: a in Montgomery form (n_words
-// words), then Montgomery one (n_words).
+// n_words: 8, 10, 12, 20 or 24; curve_words: a in Montgomery form
+// (n_words words), then Montgomery one (n_words).
 extern "C" int gct_jac_add(const void* x1, const void* y1, const void* z1,
                            const void* x2, const void* y2, const void* z2,
                            void* x3, void* y3, void* z3, long long n,

@@ -1,5 +1,5 @@
 // Straight-line program executor in waves: one block of `warps` warps per
-// 32-lane tile, at W = 8, 10 and 12 words.
+// 32-lane tile, at W = 8, 10, 12, 20 and 24 words.
 //
 // Replaces the Pallas kernel gnark_crypto_tpu/field/pallas/vm.py `execute`
 // (`_vm_call`, `_vm_kernel`). There a grid walks 512-instruction chunks of
@@ -28,11 +28,12 @@
 // The register file stays in dynamic shared memory, laid out
 // [register][word][lane]: a warp's access to one word of one register is
 // 32 consecutive words, free of bank conflicts (ROT's permuted read too).
-// K x W x 128 bytes: K <= 227 at 8 words, 181 at 10, 151 at 12, which the
-// scheduler keeps to (field/vm.py reg_cap). Rows are 16-byte int4s read
-// through the read-only cache: lane l of a warp holds its slot's row of
-// wave base + l and hands it out by shuffle, and the next 32 waves' rows
-// are fetched while these run, so a read from L2 does not stall a wave.
+// K x W x 128 bytes: K <= 227 at 8 words, 181 at 10, 151 at 12, 90 at 20
+// and 75 at 24, which the scheduler keeps to (field/vm.py reg_cap). Rows
+// are 16-byte int4s read through the read-only cache: lane l of a warp
+// holds its slot's row of wave base + l and hands it out by shuffle, and
+// the next 32 waves' rows are fetched while these run, so a read from L2
+// does not stall a wave.
 //
 // Ops: MUL (Montgomery product), ADD, SUB, HALVE (all canonical), ROT (lane
 // i receives lane (i + s) mod 32 of register a) and NOP. A ROT reads other
@@ -134,9 +135,9 @@ __global__ void __launch_bounds__(MAX_WARPS * TILE)
 }  // namespace
 
 // code: (n_waves * warps, 4) int32 rows (op, d, a, b) laid out [wave][slot];
-// omap: the n_out registers copied out; n_words: 8, 10 or 12. One block of
-// `warps` warps per 32-lane tile, K x n_words x 32 words of dynamic shared
-// memory each.
+// omap: the n_out registers copied out; n_words: 8, 10, 12, 20 or 24.
+// One block of `warps` warps per 32-lane tile, K x n_words x 32 words of
+// dynamic shared memory each.
 extern "C" int gct_vm_execute(const void* code, int n_waves, int warps,
                               const void* omap, int n_out, const void* state,
                               int n_entry, void* out, long long n_pad, int K,

@@ -3,7 +3,7 @@
 ``exp_const(spec, x, e)`` on an ``(N, W)`` int32 word tensor returns x^e
 (Montgomery in and out) for a Python-int exponent e >= 0; 0^e = 0 for
 e > 0, so e = q - 2 is the Fermat inverse with 0 -> 0. A CUDA tensor goes
-to ``csrc/exp.cu`` (W = 8, 10 or 12 words), a CPU tensor to
+to ``csrc/exp.cu`` (W = 8, 10, 12, 20 or 24 words), a CPU tensor to
 :func:`exp_const_plain`, the MSB-first ladder on :func:`mont_mul_plain`.
 Both return canonical residues, so they agree bit for bit. There is no size
 threshold: the kernel serves any batch, in one launch.
@@ -11,8 +11,8 @@ threshold: the kernel serves any batch, in one launch.
 The kernel runs the ladder right to left, so that its only dependent chain
 is the squares (nbits - 1 of them), and its multiplies trail on warps of
 their own; ``csrc/exp.cu`` fixes the product (one lane and the column
-product at 8 words, a team of 4 lanes at 10 and 12) from the sweep of
-``tools/exp_dbl2_sweep.py`` on the H100.
+product at 8 words, a team of 4 lanes at 10, 12, 20 and 24) from the sweep
+of ``tools/exp_dbl2_sweep.py`` on the H100.
 
 Replaces the Pallas kernels ``gnark_crypto_tpu/field/pallas/exp.py``
 ``exp_const_pallas`` and ``inverse_small``.

@@ -2,8 +2,8 @@
 
 ``mont_mul(spec, x, y)`` on ``(N, W)`` int32 word tensors returns
 ``x * y * 2^(-32W) mod q``, canonical. A CUDA tensor goes to the hand-written
-kernel ``csrc/mont_mul.cu`` (W-word CIOS at W = 8, 10 or 12, one thread per
-element), a CPU tensor to :func:`mont_mul_plain`. The two agree bit for
+kernel ``csrc/mont_mul.cu`` (W-word CIOS at W = 8, 10, 12, 20 or 24, one
+thread per element), a CPU tensor to :func:`mont_mul_plain`. The two agree bit for
 bit, because both return the canonical residue.
 
 The plain version cannot use uint32/uint64 arithmetic (PyTorch on the CPU
@@ -30,7 +30,7 @@ M32 = 0xFFFFFFFF
 
 # the widths csrc/field.cuh instantiates (gct::for_width): the field,
 # exponent, point and VM kernels are built at each
-FIELD_WIDTHS = (8, 10, 12)
+FIELD_WIDTHS = (8, 10, 12, 20, 24)
 
 
 # ---------------------------------------------------------------------------
@@ -122,8 +122,8 @@ def check_width(spec: FieldSpec, what: str, widths: tuple[int, ...]) -> None:
     W = spec.n_words
     if W not in widths or spec.modulus >> (32 * W - 1):
         # the ROADMAP's widths still to build: (b) 10 and 12 words in the
-        # NTT, (c) 20 and 24 words, (d) 8 words with q >= 2^255
-        todo = "(d)" if W == 8 else "(c)" if W in (20, 24) else "(b)"
+        # NTT, (d) 8 words with q >= 2^255
+        todo = "(d)" if W == 8 else "(b)"
         raise NotImplementedError(
             f"{what}: {spec.name} ({W} words, {spec.modulus.bit_length()} "
             f"bits) is not ported to its CUDA kernel, which takes "

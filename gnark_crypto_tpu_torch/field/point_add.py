@@ -13,8 +13,8 @@ the JAX wrapper's argument order, with the curve's ``a`` as a plain int:
 * :func:`jac_fold_windows`: the Horner fold of the per-window totals.
 
 A CUDA tensor goes to ``csrc/point_add.cu`` or ``csrc/affine_level.cu``
-(cores in ``csrc/point.cuh``; W = 8, 10 or 12 words), a CPU tensor to the
-``*_plain`` version here. The plain versions use only
+(cores in ``csrc/point.cuh``; W = 8, 10, 12, 20 or 24 words), a CPU
+tensor to the ``*_plain`` version here. The plain versions use only
 :func:`mont_mul_plain` and the plain ``mont.add``/``mont.sub``, so on the
 card they launch no kernel. Both follow the JAX formulas in the same
 order with canonical arithmetic, so they agree bit for bit, and with the

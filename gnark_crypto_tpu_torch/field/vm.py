@@ -27,10 +27,10 @@ and read or written by another; the code is laid out [wave][slot].
 :func:`execute` loads the entry rows (inputs and Montgomery constants) and
 calls :func:`vm_execute`: a CUDA tensor goes to ``csrc/vm.cu`` (one block
 of ``warps`` warps per 32-lane tile, warp w running slot w of every wave,
-the register file in shared memory; W = 8, 10 or 12 words), which runs
-scheduled programs only, a CPU tensor to :func:`vm_execute_plain`, which
-runs any program row by row with the plain field ops (a wave's rows in any
-order give the same registers). Both return canonical residues, so they
+the register file in shared memory; W = 8, 10, 12, 20 or 24 words), which
+runs scheduled programs only, a CPU tensor to :func:`vm_execute_plain`,
+which runs any program row by row with the plain field ops (a wave's rows
+in any order give the same registers). Both return canonical residues, so they
 agree bit for bit.
 """
 
@@ -287,7 +287,7 @@ WINDOWS = (1024, 256, 64, 16, 4, 1)
 def reg_cap(spec: FieldSpec) -> int:
     """Registers that one block's shared memory holds at the card's tile:
     K x W x 4 bytes x 32 lanes <= SMEM_BYTES (227 at 8 words, 181 at 10,
-    151 at 12)."""
+    151 at 12, 90 at 20, 75 at 24)."""
     return SMEM_BYTES // (spec.n_words * 4 * TILE)
 
 

@@ -10,7 +10,10 @@ chains.
 
 The BLS24 programs run the same formulas over ``SymTower24``: G2
 coordinates are E4 elements (four fp inputs each, ``qx0..qx3``) and GT is
-E24 (24 fp outputs), at 10 words.
+E24 (24 fp outputs), at 10 words. The BW6 programs run the joint two-row
+Miller loop and final exponentiation of ``pairing/pairing6.py`` over
+``SymTower6``: G2 is over Fp (one fp input a coordinate, ``qx0``, ``qy0``)
+and GT is E6 (6 fp outputs), at 24 words (bw6-761) and 20 (bw6-633).
 
 Execution: ONE VM launch per ``_TILE[name]`` pairs (Miller + in-program
 lane product + final exp, the ``full`` program), or a short chain for
@@ -38,21 +41,27 @@ import numpy as np
 import torch
 
 from gnark_crypto_tpu_torch.field import vm
+from gnark_crypto_tpu_torch.pairing import pairing6
 from gnark_crypto_tpu_torch.pairing.pairing12 import (
     G2Proj, PairingCtx, final_exponentiation, get_ctx)
-from gnark_crypto_tpu_torch.towers.symbolic import SymTower12, SymTower24
+from gnark_crypto_tpu_torch.towers.symbolic import (
+    SymTower6, SymTower12, SymTower24)
 from gnark_crypto_tpu_torch.towers.tower12 import (
     TOWER12_PARAMS, _scale_ext_by_fp)
 from gnark_crypto_tpu_torch.towers.tower24 import TOWER24_PARAMS
+from gnark_crypto_tpu_torch.towers.tower6 import TOWER6_PARAMS
 
-VM_FAMILIES = ("bn254", "bls12_381", "bls12_377", "bls24_315", "bls24_317")
+VM_FAMILIES = ("bn254", "bls12_381", "bls12_377", "bls24_315", "bls24_317",
+               "bw6_761", "bw6_633")
+_BW6 = ("bw6_761", "bw6_633")
 
 # lanes per VM tile, per family: one warp, one block of the VM kernel, whose
 # register file (K x 4W bytes a lane: K <= 168 at 8 words, 140 at 12, 181 at
-# 10 for the bls24 programs) fits a block's shared memory at 32 lanes. The
-# reference's 256 and 128 answered the TPU's VMEM and its 128-lane rotates.
+# 10 for the bls24 programs, 90 at 20 and 75 at 24 for bw6) fits a block's
+# shared memory at 32 lanes. The reference's 256 and 128 answered the TPU's
+# VMEM and its 128-lane rotates.
 _TILE = {"bn254": 32, "bls12_381": 32, "bls12_377": 32,
-         "bls24_315": 32, "bls24_317": 32}
+         "bls24_315": 32, "bls24_317": 32, "bw6_761": 32, "bw6_633": 32}
 
 # rows a wave, i.e. warps of the VM block, for every program variant: on
 # the H100 each of the 12 pairing programs runs fastest at 16 of 4, 8, 12
@@ -65,18 +74,20 @@ def _bls24(name: str) -> bool:
 
 
 def _gt_coeffs(name: str) -> int:
-    """GT coefficients over fp: 24 for BLS24 (E24), 12 for BN/BLS12."""
-    return 24 if _bls24(name) else 12
+    """GT coefficients over fp: 6 for BW6 (E6), 24 for BLS24 (E24), 12 for
+    BN/BLS12."""
+    return 6 if name in _BW6 else 24 if _bls24(name) else 12
 
 
 def _gt_shape(name: str) -> tuple[int, ...]:
-    """[w][v][u] for E12, [z][w][v][u] for E24."""
-    return (2, 3, 2, 2) if _bls24(name) else (2, 3, 2)
+    """[v][u] for E6, [w][v][u] for E12, [z][w][v][u] for E24."""
+    return {6: (2, 3), 12: (2, 3, 2), 24: (2, 3, 2, 2)}[_gt_coeffs(name)]
 
 
 def _q_coords(name: str) -> int:
-    """fp coefficients per G2 coordinate: 2 over E2, 4 over E4 (BLS24)."""
-    return 4 if _bls24(name) else 2
+    """fp coefficients per G2 coordinate: 1 over Fp (BW6), 2 over E2, 4 over
+    E4 (BLS24)."""
+    return 1 if name in _BW6 else 4 if _bls24(name) else 2
 
 
 def _coord_shape(name: str) -> tuple[int, ...]:
@@ -141,12 +152,58 @@ def _sym_miller12(asm: vm.Asm, ctx: PairingCtx):
     return _mask_gt(tw, facc, m, mc)
 
 
-def _sym_lane_product(tw, facc):
-    """All-lanes product: log2(tile) rotate-multiply rounds; afterwards
-    every lane holds the product over its tile (the assembler's tile)."""
+def _sym_miller6(asm: vm.Asm, ctx: pairing6.PairingCtx6):
+    """BW6 joint two-row Miller loop over the symbolic Tower6; returns the
+    masked facc coefficient-id array. The reference's eager loop
+    (pairing6.miller_loop) selects 1 on infinite lanes; here the lanes are
+    masked as a whole."""
+    tw = ctx.tower
+    f, e6 = tw.fp, tw.e6
+    px, py = f.input("px"), f.input("py")
+    qx, qy = f.input("qx0"), f.input("qy0")
+    m, mc = f.input("m"), f.input("mc")
+
+    w = f.from_int(ctx.third_root)
+    q0 = (qx, qy)
+    q0n = (qx, f.neg(qy))
+    q1 = (f.mul(qx, w), f.neg(qy))         # pairing.go:157-161
+    q1n = (q1[0], qy)
+    adds = {3: q1, 1: q0, -1: q0n, -3: q1n}
+
+    start = q1 if ctx.par["start_q1"] else q0  # MSB of the scaled-by-3 row
+    qp = pairing6.G2ProjFp(start[0], start[1], f.ones(()))
+    facc = e6.ones(())
+
+    for i in range(ctx.nbits - 1, 0, -1):
+        facc = e6.square(facc)
+        qp, line = ctx.double_step(qp)
+        facc = e6.mul(facc, ctx.line_value(line, px, py))
+        j = ctx._dig(i)
+        if j:
+            ax, ay = adds[j]
+            qp, line = ctx.add_mixed_step(qp, ax, ay)
+            facc = e6.mul(facc, ctx.line_value(line, px, py))
+    # i = 0: the tangent, then the final line with no point update
+    # (bw6-761 pairing.go:259-271 j=-3 -> q1Neg; bw6-633 :274-289 j=1 -> q0)
+    facc = e6.square(facc)
+    qp, line = ctx.double_step(qp)
+    facc = e6.mul(facc, ctx.line_value(line, px, py))
+    lp = {"q1n": q1n, "q0": q0}[ctx.par["i0"][0]]
+    facc = e6.mul(facc, ctx.line_value(ctx.line_compute(qp, lp[0], lp[1]),
+                                       px, py))
+    if ctx.par["conj_end"]:
+        facc = tw.conjugate(facc)  # negative seed (bw6-633)
+
+    return _mask_gt(tw, facc, m, mc)
+
+
+def _sym_lane_product(tw, gt, facc):
+    """All-lanes product over the GT engine ``gt``: log2(tile)
+    rotate-multiply rounds; afterwards every lane holds the product over its
+    tile (the assembler's tile)."""
     k = tw.fp.asm.tile // 2
     while k:
-        facc = tw.e12.mul(facc, tw.rot(facc, k))
+        facc = gt.mul(facc, tw.rot(facc, k))
         k //= 2
     return facc
 
@@ -163,32 +220,42 @@ def build_program(name: str, variant: str, tile: int | None = None
 @functools.lru_cache(maxsize=None)
 def _build_program(name: str, variant: str, tile: int) -> vm.Program:
     assert name in VM_FAMILIES, name
-    if _bls24(name):
-        asm = vm.Asm(TOWER24_PARAMS[name][0], tile=tile)
-        tw = SymTower24(name, asm)
+    if name in _BW6:
+        asm = vm.Asm(TOWER6_PARAMS[name][0], tile=tile)
+        tw = SymTower6(name, asm)
+        ctx = pairing6.PairingCtx6(name, tower=tw)
+        gt = tw.e6
+        fin = pairing6.final_exponentiation
+        miller = _sym_miller6
     else:
-        asm = vm.Asm(TOWER12_PARAMS[name][0], tile=tile)
-        tw = SymTower12(name, asm)
-    ctx = PairingCtx(name, tower=tw)
+        params = TOWER24_PARAMS if _bls24(name) else TOWER12_PARAMS
+        asm = vm.Asm(params[name][0], tile=tile)
+        tw = (SymTower24 if _bls24(name) else SymTower12)(name, asm)
+        ctx = PairingCtx(name, tower=tw)
+        gt = tw.e12
+        fin = final_exponentiation
+        miller = _sym_miller12
     nc = _gt_coeffs(name)
 
-    def outputs(gt):
-        return {f"g{i}": v for i, v in enumerate(_flat_ids(gt))}
+    def outputs(z):
+        return {f"g{i}": v for i, v in enumerate(_flat_ids(z))}
 
     if variant in ("reduce", "product"):
         f = tw.fp
+        # the GT shape from gt.ones, which registers the constants 1 and 0
+        # here, in the reference's order
         facc = np.asarray([f.input(f"f{i}") for i in range(nc)],
-                          np.int32).reshape(_gt_shape(name))
-        facc = _sym_lane_product(tw, facc)
+                          np.int32).reshape(gt.ones(()).shape)
+        facc = _sym_lane_product(tw, gt, facc)
         if variant == "product":
             return asm.build(outputs(facc))
-        return asm.build(outputs(final_exponentiation(ctx, facc)))
+        return asm.build(outputs(fin(ctx, facc)))
 
-    facc = _sym_lane_product(tw, _sym_miller12(asm, ctx))
+    facc = _sym_lane_product(tw, gt, miller(asm, ctx))
     if variant == "miller":
         return asm.build(outputs(facc))
     assert variant == "full"
-    return asm.build(outputs(final_exponentiation(ctx, facc)))
+    return asm.build(outputs(fin(ctx, facc)))
 
 
 def program(name: str, variant: str) -> vm.Program:
@@ -213,16 +280,16 @@ def pair_vm(name: str, P, QX, QY):
     remains, then ``reduce``.
 
     P: G1 ``Affine`` of (n, W) words; QX, QY: (n, 2, W) E2 coordinates,
-    or (n, 2, 2, W) E4 coordinates for BLS24; infinity is all-zero.
-    Returns the GT element, (2, 3, 2, W), or (2, 3, 2, 2, W) for BLS24.
+    (n, 2, 2, W) E4 coordinates for BLS24, or (n, W) Fp coordinates for
+    BW6; infinity is all-zero. Returns the GT element, (2, 3, 2, W),
+    (2, 3, 2, 2, W) for BLS24 or (2, 3, W) for BW6.
     """
-    if name not in VM_FAMILIES:
-        raise NotImplementedError(
-            f"{name}: the BW6 pairings are not ported yet (ROADMAP.md "
-            "queue 1, item 4)")
-    ctx = get_ctx(name, P.x.device)
-    tw = ctx.tower
-    f, e2 = tw.fp, tw.e2
+    if name in _BW6:
+        tw = pairing6.get_ctx6(name, P.x.device).tower
+        f = e2 = tw.fp   # G2 is over Fp
+    else:
+        tw = get_ctx(name, P.x.device).tower
+        f, e2 = tw.fp, tw.e2
     n = f.eshape(P.x)[0]
     tile = _TILE[name]
     n_pad = -(-n // tile) * tile

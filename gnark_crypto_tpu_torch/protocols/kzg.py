@@ -16,8 +16,8 @@ Counterpart of ``gnark_crypto_tpu/protocols/kzg.py`` (reference
 Polynomials, points and claimed values are plain (non-Montgomery) Fr
 words: a polynomial ``(n, W)``, a point or value ``(1, W)``. Commitments
 and quotients are affine G1 batches of one point, as in the JAX package.
-Any curve with a ported pairing works: bn254, bls12-381/377 and
-bls24-315/317, on the card or on the CPU's plain versions.
+Any pairing curve works: bn254, bls12-381/377, bls24-315/317 and
+bw6-761/633, on the card or on the CPU's plain versions.
 
 Not ported yet (ROADMAP.md queue 1, item 6): ``VerifyingKey.with_lines``
 and the fixed-Q pairing of ``pairing/lines.py``; ``new_srs`` computes

@@ -179,6 +179,19 @@ class ExtEngine:
             r = r & self.base.equal(self.coeff(x, i), self.coeff(y, i))
         return r
 
+    # -- exponentiation -----------------------------------------------------
+    def exp_const(self, x, e: int):
+        """x^e for a static e >= 0: MSB-first square-and-multiply from x
+        (the reference's eager ladder, ``utils/hostloop.py`` exp_ladder)."""
+        if e == 0:
+            return self.broadcast_to(self.ones(), self.eshape(x))
+        res = x
+        for bit in bin(e)[3:]:  # MSB consumed by res = x
+            res = self.square(res)
+            if bit == "1":
+                res = self.mul(res, x)
+        return res
+
     def batch_inverse(self, x):
         """Elementwise inverse (0 -> 0). Every extension inverse bottoms out
         in one base-field ``inverse`` of the whole batch, a single

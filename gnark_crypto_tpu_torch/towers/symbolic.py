@@ -1,8 +1,9 @@
 """Symbolic field/tower engines: run formula code to EMIT VM programs.
 
 Counterpart of ``gnark_crypto_tpu/towers/symbolic.py``. The extension
-towers (``towers/engine.py``, ``towers/tower12.py``, ``towers/tower24.py``)
-and the pairing step formulas (``pairing/pairing12.py``) are written
+towers (``towers/engine.py``, ``towers/tower12.py``, ``towers/tower24.py``,
+``towers/tower6.py``) and the pairing step formulas
+(``pairing/pairing12.py``, ``pairing/pairing6.py``) are written
 against the field-engine protocol. This module provides a drop-in engine
 whose "elements" are numpy arrays of SSA value ids and whose ops append
 instructions to a :class:`field.vm.Asm`, so the same tower and pairing
@@ -23,6 +24,7 @@ from gnark_crypto_tpu_torch.specs.field import FieldSpec
 from gnark_crypto_tpu_torch.towers.engine import CubicExtEngine, QuadExtEngine
 from gnark_crypto_tpu_torch.towers.tower12 import TOWER12_PARAMS, Tower12
 from gnark_crypto_tpu_torch.towers.tower24 import TOWER24_PARAMS, Tower24
+from gnark_crypto_tpu_torch.towers.tower6 import TOWER6_PARAMS, Tower6
 
 
 class SymField:
@@ -199,6 +201,19 @@ class SymTower24(Tower24):
         spec, beta, v_sq = TOWER24_PARAMS[name]
         super().__init__(name, spec, beta, v_sq,
                          fp=SymField(spec, asm),
+                         quad_cls=SymQuadExt, cubic_cls=SymCubicExt)
+
+    def rot(self, x, lanes: int):
+        """Lane-rotate every fp coefficient (for in-kernel product trees)."""
+        return self.fp.rot(x, lanes)
+
+
+class SymTower6(Tower6):
+    """Tower6 over a symbolic fp engine (the BW6 VM pairing programs)."""
+
+    def __init__(self, name: str, asm: vm.Asm):
+        spec, nr = TOWER6_PARAMS[name]
+        super().__init__(name, spec, nr, fp=SymField(spec, asm),
                          quad_cls=SymQuadExt, cubic_cls=SymCubicExt)
 
     def rot(self, x, lanes: int):

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -32,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[str, ctypes._CFuncPtr] = {}
+# wall seconds of each source's nvcc in this process's build, from its start
+# to its end, every source compiling at once (name -> s)
+build_seconds: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -58,7 +62,9 @@ def build_all() -> Path:
     and return the build directory.
 
     Writes ``nvcc``'s report (``-Xptxas -v``: registers, shared memory,
-    spills) beside each library as ``lib<name>.log``.
+    spills) beside each library as ``lib<name>.log``, and each source's
+    nvcc wall seconds, from its own start to its end while every other
+    source compiles beside it, into :data:`build_seconds`.
     """
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
@@ -73,14 +79,21 @@ def build_all() -> Path:
             tmp = out / f".lib{src.stem}.{os.getpid()}.so"
             log = out / f"lib{src.stem}.log"
             with open(log, "w") as fh:
+                start = time.perf_counter()
                 proc = subprocess.Popen(
                     [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                      str(src)], stdout=fh, stderr=subprocess.STDOUT)
-            jobs.append((src, lib, tmp, log, proc))
+            jobs.append((src, lib, tmp, log, proc, start))
     finally:
-        codes = [(job, job[4].wait()) for job in jobs]
+        codes, pending = [], list(jobs)
+        while pending:  # each source's seconds as it finishes
+            for job in [j for j in pending if j[4].poll() is not None]:
+                build_seconds[job[0].name] = time.perf_counter() - job[5]
+                codes.append((job, job[4].returncode))
+                pending.remove(job)
+            time.sleep(0.05)
     failed = []
-    for (src, lib, tmp, log, _), rc in codes:
+    for (src, lib, tmp, log, _, _), rc in codes:
         if rc == 0:
             os.replace(tmp, lib)
         else:

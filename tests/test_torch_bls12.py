@@ -2,10 +2,9 @@
 
 * Which kernels take which fields: the width check of every CUDA wrapper
   (``field/kernels.py`` ``check_width``), called directly since it needs
-  no card: the field, exponent, point and VM kernels are built at 8, 10
-  and 12 words, the Fp2 point kernels at 8 and 12, the NTT kernels at 8
-  only, and no kernel takes 20 or 24 words or an 8-word q >= 2^255
-  (secp256k1/r1). The Fp2 kernels take only the (words, nr) pairs they
+  no card: the field, exponent, point and VM kernels are built at 8, 10,
+  12, 20 and 24 words, the Fp2 point kernels at 8 and 12, the NTT kernels
+  at 8 only, and no kernel takes an 8-word q >= 2^255 (secp256k1/r1). The Fp2 kernels take only the (words, nr) pairs they
   were built for: (8, -1), (12, -1) and (12, -5).
 * What the 12-word kernels receive from the host, against Python integers:
   the field words and -q^-1 mod 2^32, Montgomery one, the exponent words of
@@ -77,10 +76,11 @@ def words_int(words) -> int:
 ADMITTED_BY_FIELD_KERNELS = [
     ("bn254_fr", 8), ("bn254_fp", 8), ("stark_fp", 8), ("bls12_381_fr", 8),
     ("bls24_315_fp", 10), ("bls24_317_fp", 10), ("bw6_633_fr", 10),
-    ("bls12_381_fp", 12), ("bls12_377_fp", 12), ("bw6_761_fr", 12)]
+    ("bls12_381_fp", 12), ("bls12_377_fp", 12), ("bw6_761_fr", 12),
+    ("bw6_633_fp", 20), ("bw6_761_fp", 24)]
 REFUSED_EVERYWHERE = [
-    ("bw6_633_fp", 20), ("bw6_761_fp", 24), ("secp256k1_fp", 8),
-    ("secp256k1_fr", 8), ("secp256r1_fp", 8), ("secp256r1_fr", 8)]
+    ("secp256k1_fp", 8), ("secp256k1_fr", 8), ("secp256r1_fp", 8),
+    ("secp256r1_fr", 8)]
 # the widths each wrapper passes to check_kernel_args / check_width
 WRAPPER_WIDTHS = {
     "mont_mul, exp_const, the G1 point kernels, vm_execute":
@@ -90,7 +90,7 @@ WRAPPER_WIDTHS = {
 
 
 def test_wrapper_widths():
-    assert kernels.FIELD_WIDTHS == (8, 10, 12)
+    assert kernels.FIELD_WIDTHS == (8, 10, 12, 20, 24)
     assert radix2.WIDTHS == (8,) and point_add2.WIDTHS == (8, 12)
     assert point_add2.PAIRS == ((8, -1), (12, -1), (12, -5))
 
@@ -102,12 +102,13 @@ def test_width_check_admits(name, words):
     kernels.check_width(spec, "mont_mul", kernels.FIELD_WIDTHS)
     if words in point_add2.WIDTHS:
         kernels.check_width(spec, "jac_add2", point_add2.WIDTHS)
-    else:  # no Fp2 kernel at 10 words: bls24's G2 is over Fp4
+    else:  # no Fp2 kernel at 10, 20 or 24 words: bls24's G2 is over
+        # Fp4, bw6's over Fp
         with pytest.raises(NotImplementedError):
             kernels.check_width(spec, "jac_add2", point_add2.WIDTHS)
     if words == 8:
         kernels.check_width(spec, "ntt_radix2 stage", radix2.WIDTHS)
-    else:  # 10- and 12-word fields never reach an 8-word NTT kernel
+    else:  # wider fields never reach an 8-word NTT kernel
         with pytest.raises(NotImplementedError):
             kernels.check_width(spec, "8-word kernel", radix2.WIDTHS)
 

@@ -1,10 +1,10 @@
 """bls24-315 and bls24-317 in the port, at 10-word Fp, on the CPU.
 
 * Which kernels take which fields: the field, exponent, G1 point and VM
-  kernels are built at 8, 10 and 12 words, so they take bls24 Fp (and
-  bw6-633 Fr, bls24-315's Fp); the Fp2 and NTT kernels take no 10-word
-  field, and no kernel takes 20 or 24 words or secp256k1/r1. What the
-  10-word kernels receive from the host, against Python integers.
+  kernels are built at 8, 10, 12, 20 and 24 words, so they take bls24 Fp
+  (and bw6-633 Fr, bls24-315's Fp); the Fp2 and NTT kernels take no
+  10-word field, and no kernel takes secp256k1/r1. What the 10-word
+  kernels receive from the host, against Python integers.
 * The field at bls24 Fp against Python integers and the JAX engine.
 * ``towers/tower24.py`` against the JAX ``Tower24`` on the same seeded
   inputs, and the GT codec, the subgroup check and ``gt_exp`` from the
@@ -72,6 +72,9 @@ def words_int(words) -> int:
 # -- the width check ---------------------------------------------------------
 
 TEN_WORDS = ["bls24_315_fp", "bls24_317_fp", "bw6_633_fr"]
+# bw6 Fp: admitted by the field kernels since their 20- and 24-word
+# instantiations, refused by the NTT and Fp2 ones; secp256k1/r1 refused by
+# every kernel
 STILL_REFUSED = [("bw6_633_fp", 20), ("bw6_761_fp", 24),
                  ("secp256k1_fp", 8), ("secp256k1_fr", 8),
                  ("secp256r1_fp", 8), ("secp256r1_fr", 8)]
@@ -82,7 +85,8 @@ def test_field_kernels_take_10_words(name):
     """The field, exponent, G1 point and VM wrappers take the 10-word
     fields (q < 2^(32W-1)); the NTT and Fp2 kernels were not built at 10."""
     spec = tfs.get_field(name)
-    assert spec.n_words == 10 and kernels.FIELD_WIDTHS == (8, 10, 12)
+    assert spec.n_words == 10
+    assert kernels.FIELD_WIDTHS == (8, 10, 12, 20, 24)
     assert spec.modulus < 1 << (32 * 10 - 1)
     kernels.check_width(spec, "mont_mul", kernels.FIELD_WIDTHS)
     for widths in (radix2.WIDTHS, point_add2.WIDTHS):
@@ -92,10 +96,18 @@ def test_field_kernels_take_10_words(name):
 
 @pytest.mark.parametrize("name,words", STILL_REFUSED)
 def test_kernels_still_refuse_bw6_and_secp(name, words):
+    """secp256k1/r1 (8 words, q >= 2^255) are refused by every kernel,
+    naming the ROADMAP's width (d); bw6 Fp (20 and 24 words) by the NTT and
+    Fp2 kernels only, and the field kernels take it."""
     spec = tfs.get_field(name)
     assert spec.n_words == words
-    todo = "(d)" if words == 8 else "(c)"
-    for widths in (kernels.FIELD_WIDTHS, radix2.WIDTHS, point_add2.WIDTHS):
+    refused = (radix2.WIDTHS, point_add2.WIDTHS)
+    if words == 8:
+        refused += (kernels.FIELD_WIDTHS,)
+    else:
+        kernels.check_width(spec, "mont_mul", kernels.FIELD_WIDTHS)
+    todo = "(d)" if words == 8 else "(b)"
+    for widths in refused:
         with pytest.raises(NotImplementedError,
                            match=re.escape(f"widths {todo}")):
             kernels.check_width(spec, "kernel", widths)
@@ -429,13 +441,21 @@ def test_bls24_gt_subgroup_check(name):
 
 
 def test_bw6_pairings_still_refused():
-    """BW6 is not ported: the facade raises, naming its ROADMAP item."""
-    for name in ("bw6_761", "bw6_633"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            api.gt_engine(name, CPU)
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            vm_pairing.pair_vm(name, Affine(torch.zeros(1, 20),
-                                            torch.zeros(1, 20)), None, None)
+    """BW6 is ported since its slice (``tests/test_torch_bw6.py``): the
+    facade gives the E6 engine of ``towers/tower6.py`` (GT (2, 3, W)), and
+    the VM pairing programs take one fp coordinate a G2 coordinate and give
+    6 GT coefficients, at 20 (bw6-633) and 24 (bw6-761) words."""
+    from gnark_crypto_tpu_torch.towers.tower6 import get_tower6
+
+    for name, W in (("bw6_761", 24), ("bw6_633", 20)):
+        e6 = api.gt_engine(name, CPU)
+        assert e6 is get_tower6(name, CPU).e6
+        assert e6.ones(device=CPU).shape == (2, 3, W)
+        prog = vm_pairing.build_program(name, "product")
+        assert prog.spec.n_words == W and len(prog.out_regs) == 6
+        names = {n for _, n in vm_pairing.build_program(
+            name, "miller").entry_inputs}
+        assert names == {"px", "py", "qx0", "qy0", "m", "mc"}
 
 
 # -- G1 on the plain point versions ------------------------------------------

@@ -66,9 +66,8 @@ def test_mont_mul_rejects_bad_input(cuda):
         kernels.mont_mul(SPEC, x, x.to(torch.int64))
     with pytest.raises(ValueError):
         kernels.mont_mul(SPEC, x[::2], x[::2])
-    # 20 and 24 words, and 8 words with q > 2^255: not built for them
-    for spec in (fs.SECP256R1_FP, fs.BW6_633_FP, fs.BW6_761_FP,
-                 fs.SECP256K1_FP, fs.SECP256R1_FR):
+    # 8 words with q > 2^255: not built for them
+    for spec in (fs.SECP256R1_FP, fs.SECP256K1_FP, fs.SECP256R1_FR):
         y = mont.from_int(spec, [1], device=cuda)
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
             kernels.mont_mul(spec, y, y)
@@ -80,6 +79,8 @@ def test_mont_mul_rejects_bad_input(cuda):
 W12 = [fs.BLS12_381_FP, fs.BLS12_377_FP, fs.BW6_761_FR]
 # and their 10-word fields (bw6-633 Fr is bls24-315 Fp)
 W10 = [fs.BLS24_315_FP, fs.BLS24_317_FP, fs.BW6_633_FR]
+# and their 20- and 24-word fields (bw6-633 Fp, bw6-761 Fp)
+W20_24 = [fs.BW6_633_FP, fs.BW6_761_FP]
 
 
 @pytest.mark.cuda
@@ -153,6 +154,43 @@ def test_exp_const_kernel_matches_plain_10_words(cuda, spec):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("spec", W20_24, ids=lambda s: s.name)
+def test_mont_mul_kernel_matches_plain_20_24_words(cuda, spec):
+    """The rolled CIOS of the 20- and 24-word products (80- and 96-byte
+    rows, 16-byte loads), odd lengths and a slice from row 1."""
+    q, W = spec.modulus, spec.n_words
+    rng = random.Random(W)
+    a = [0, 1, q - 1, (q - 1) // 2] + [rng.randrange(q) for _ in range(4097)]
+    b = [q - 1, 0, 1, (q + 1) // 2] + [rng.randrange(q) for _ in range(4097)]
+    x, y = (mont.from_int(spec, v, device=cuda) for v in (a, b))
+    by_width = dict(kernels.mont_mul.launches_by_width)
+    got = kernels.mont_mul(spec, x, y)
+    assert kernels.mont_mul.launches_by_width[W] == by_width.get(W, 0) + 1
+    assert kernels.mont_mul.launches_by_width.get(12) == by_width.get(12)
+    assert torch.equal(got, kernels.mont_mul_plain(spec, x, y))
+    assert torch.equal(kernels.mont_mul(spec, x[1:], y[1:]), got[1:])
+    assert mont.to_int(spec, got[:64]) == [u * v % q
+                                           for u, v in zip(a[:64], b[:64])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", W20_24, ids=lambda s: s.name)
+def test_exp_const_kernel_matches_plain_20_24_words(cuda, spec):
+    """A team of 4 lanes an element, 5 or 6 words a lane."""
+    q, W = spec.modulus, spec.n_words
+    rng = random.Random(W + 1)
+    vals = [0, 1, q - 1] + [rng.randrange(q) for _ in range(200)]
+    x = mont.from_int(spec, vals, device=cuda)
+    for e in (q - 2, 3, (q - 1) // 2, 0, 1 << 800):
+        before = exp.exp_const.launches_by_width.get(W, 0)
+        got = exp.exp_const(spec, x, e)
+        assert exp.exp_const.launches_by_width[W] == before + 1
+        assert torch.equal(got, exp.exp_const_plain(spec, x, e))
+    assert mont.to_int(spec, mont.inverse(spec, x[:8])) == [
+        pow(v, q - 2, q) for v in vals[:8]]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 5, 12, 14, 15])
 def test_ntt_kernels_match_plain(cuda, k):
     n = 1 << k
@@ -192,9 +230,11 @@ def test_wrappers_count_launches_and_reject(cuda):
 
 # -- exp_const and the point kernels -----------------------------------------
 
-# a = 0 and a = 1 at 8 words; the bls24 G1 curves at 10, the bls12 at 12
+# a = 0 and a = 1 at 8 words; the bls24 G1 curves at 10, the bls12 at 12,
+# bw6-633 G1 and G2 at 20 and bw6-761 G1 and G2 at 24 (bw6's G2 is over Fp)
 CURVES = ["bn254_g1", "stark_g1", "bls24_315_g1", "bls24_317_g1",
-          "bls12_381_g1", "bls12_377_g1"]
+          "bls12_381_g1", "bls12_377_g1", "bw6_633_g1", "bw6_633_g2",
+          "bw6_761_g1", "bw6_761_g2"]
 
 
 def oracle_add(P, Q, p, a):
@@ -327,6 +367,34 @@ def test_fold_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("spec", W20_24, ids=lambda s: s.name)
+def test_point_kernels_a_nonzero_20_24_words(cuda, spec):
+    """Every bw6 curve has a = 0; the a != 0 instantiations at 20 and 24
+    words against the plain versions on coordinates of no curve (the
+    formulas take any field values): the double, the add with its doubling
+    lanes (P + P) and the fold."""
+    q, W = spec.modulus, spec.n_words
+    rng = random.Random(W + 2)
+    n = 515
+    c = [mont.from_int(spec, [rng.randrange(q) for _ in range(n)],
+                       device=cuda) for _ in range(3)]
+    d = [t.clone() for t in c]
+    for t, u in zip(d, c):      # every fourth lane adds P to itself
+        t[::4] = u[::4]
+    a = 5
+    for k, w in zip(point_add.jac_double(spec, a, *c),
+                    point_add.jac_double_plain(spec, a, *c)):
+        assert torch.equal(k, w)
+    for k, w in zip(point_add.jac_add(spec, a, *c, *d),
+                    point_add.jac_add_plain(spec, a, *c, *d)):
+        assert torch.equal(k, w)
+    T = [t[:6].contiguous() for t in c]
+    for k, w in zip(point_add.jac_fold_windows(spec, a, *T, 3),
+                    point_add.jac_fold_windows_plain(spec, a, *T, 3)):
+        assert torch.equal(k, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", CURVES)
 def test_msm_2e12_matches_identity(cuda, name):
     """msm([i+1]G, s) == [sum s_i (i+1) mod r]G, compared as affine ints."""
@@ -362,9 +430,9 @@ def test_point_kernels_reject(cuda):
                                             device=cuda),
                                 torch.zeros(8, dtype=torch.int32,
                                             device=cuda))
-    bw6 = curve_ops(cs.get_curve("bw6_633_g1"))  # 20-word Fp
+    secp = curve_ops(cs.get_curve("secp256k1_g1"))  # 8 words, q >= 2^255
     with pytest.raises(NotImplementedError):
-        bw6.double(bw6.generator_jac(device=cuda))
+        secp.double(secp.generator_jac(device=cuda))
 
 
 def vm_state(prog, n_pad, cuda):
@@ -395,11 +463,11 @@ def test_vm_kernel_matches_plain(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("warps", [1, 4, 16])
-@pytest.mark.parametrize("spec", [fs.BN254_FP, *W10[:2], *W12[:2]],
-                         ids=lambda s: s.name)
+@pytest.mark.parametrize("spec", [fs.BN254_FP, *W10[:2], *W12[:2],
+                                  *W20_24], ids=lambda s: s.name)
 def test_vm_wave_kernel_matches_plain_wide(cuda, spec, warps):
     """Random programs with a wide operand window, whose waves are full,
-    at 8, 10 and 12 words and 1, 4 and 16 warps a block."""
+    at 8, 10, 12, 20 and 24 words and 1, 4 and 16 warps a block."""
     prog = vm.schedule(vm.random_program(spec, 2900, seed=23, window=64),
                        warps)
     state = vm_state(prog, 2 * prog.tile, cuda)
@@ -419,10 +487,10 @@ def test_vm_kernel_rejects(cuda):
         vm.vm_execute(prog, state.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError):  # the kernel runs scheduled programs
         vm.vm_execute(built, state)
-    bw6 = vm.schedule(vm.random_program(fs.BW6_633_FP, 50, seed=3), 8)
-    with pytest.raises(NotImplementedError):  # 20-word Fp
-        vm.vm_execute(bw6, torch.zeros((bw6.n_entry, bw6.tile, 20),
-                                       dtype=torch.int32, device=cuda))
+    secp = vm.schedule(vm.random_program(fs.SECP256K1_FP, 50, seed=3), 8)
+    with pytest.raises(NotImplementedError):  # q >= 2^255 at 8 words
+        vm.vm_execute(secp, torch.zeros((secp.n_entry, secp.tile, 8),
+                                        dtype=torch.int32, device=cuda))
     prog12 = vm.schedule(vm.random_program(fs.BLS12_381_FP, 50, seed=3), 8)
     assert prog12.n_entry == prog.n_entry
     with pytest.raises(ValueError):  # a 12-word program on 8-word rows
@@ -453,6 +521,51 @@ def test_vm_kernel_matches_plain_10_words(cuda, spec):
     got = vm.vm_execute(prog, state)
     assert vm.vm_execute.launches_by_width[10] == before + 1
     assert torch.equal(got, vm.vm_execute_plain(prog, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", W20_24, ids=lambda s: s.name)
+def test_vm_kernel_matches_plain_20_24_words(cuda, spec):
+    """The random program of all six ops at 20 and 24 words (bw6 Fp):
+    K x 80 or 96 bytes a lane, within reg_cap (90, 75)."""
+    W = spec.n_words
+    prog = vm.schedule(vm.random_program(spec, 2900, seed=W), 8)
+    assert prog.n_regs <= vm.reg_cap(spec)
+    state = vm_state(prog, 3 * prog.tile, cuda)
+    before = vm.vm_execute.launches_by_width.get(W, 0)
+    got = vm.vm_execute(prog, state)
+    assert vm.vm_execute.launches_by_width[W] == before + 1
+    assert torch.equal(got, vm.vm_execute_plain(prog, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bw6_633", "bw6_761"])
+def test_bw6_pair_on_card_equals_golden(cuda, name):
+    """e(G1, G2) through the 20- or 24-word VM kernel (G2 over Fp), the
+    2-pair check e(P, Q) e(-P, Q) == 1, and gt_exp and the subgroup check
+    on the golden element."""
+    import json
+    import os
+
+    fix = os.path.join(os.path.dirname(__file__), "fixtures",
+                       "gt_golden.json")
+    with open(fix) as f:
+        want = json.load(f)[name]
+    g1 = curve_ops(cs.get_curve(f"{name}_g1")).generator_affine(device=cuda)
+    g2 = g2_curve(name, cuda).generator_affine(device=cuda)
+    fp = cs.get_curve(f"{name}_g1").fp
+    before = vm.vm_execute.launches_by_width.get(fp.n_words, 0)
+    P = Affine(g1.x[None], g1.y[None])
+    z = pairing_api.pair(name, P, g2.x[None], g2.y[None])
+    assert vm.vm_execute.launches_by_width[fp.n_words] == before + 1
+    assert gt_bytes.gt_to_bytes(name, z)[0].hex() == want["generator"]
+    assert gt_bytes.gt_to_bytes(name, pairing_api.gt_exp(name, z, 35))[
+        0].hex() == want["p5_q7"]
+    assert bool(pairing_api.gt_is_in_subgroup(name, z))
+    P2 = Affine(torch.cat([P.x, P.x]),
+                torch.cat([P.y, mont.neg(fp, P.y)]))
+    QX, QY = (torch.cat([c[None], c[None]]) for c in g2)
+    assert bool(pairing_api.pairing_check(name, P2, QX, QY))
 
 
 @pytest.mark.cuda
@@ -510,8 +623,9 @@ def test_bls12_pair_on_card_equals_golden(cuda, name):
 def test_unported_widths_raise_before_any_kernel(cuda):
     """On the card, the Fp2 kernels called with a (words, nr) pair they
     were not built for (bn254's Fp with u^2 = -5, bls12-381's with -7, a
-    10-word Fp), and the bw6-761 Fr NTT, raise NotImplementedError and
-    launch no NTT or Fp2 kernel on the way."""
+    10-, 20- or 24-word Fp), the bw6-761 and bw6-633 Fr NTTs and the
+    secp256k1/r1 products raise NotImplementedError and launch no kernel
+    on the way."""
     from gnark_crypto_tpu_torch.field import point_add2
 
     eight = (radix2.stage, radix2.block, four_step.sub_ntt,
@@ -520,7 +634,8 @@ def test_unported_widths_raise_before_any_kernel(cuda):
              point_add2.jac_fold_windows2)
     before = [w.launches for w in eight]
     for spec, nr in ((fs.BN254_FP, -5), (fs.BLS12_381_FP, -7),
-                     (fs.BLS24_315_FP, -1)):
+                     (fs.BLS24_315_FP, -1), (fs.BW6_633_FP, -1),
+                     (fs.BW6_761_FP, -1)):
         x = torch.zeros((4, 2, spec.n_words), dtype=torch.int32, device=cuda)
         bits = torch.zeros((4,), dtype=torch.int32, device=cuda)
         for fn, args in ((point_add2.jac_add2, (x,) * 6),
@@ -530,12 +645,23 @@ def test_unported_widths_raise_before_any_kernel(cuda):
                          (point_add2.jac_fold_windows2, (x,) * 3 + (3,))):
             with pytest.raises(NotImplementedError):
                 fn(spec, nr, *args)
-    dom = Domain(fs.BW6_761_FR, 1 << 14, device=cuda)
-    a = mont.from_int(fs.BW6_761_FR, list(range(1 << 14)), device=cuda)
-    for dec in ("DIF", "DIT"):
-        with pytest.raises(NotImplementedError):
-            fft.fft(dom, a, dec)
+    for fr in (fs.BW6_761_FR, fs.BW6_633_FR):
+        dom = Domain(fr, 1 << 14, device=cuda)
+        a = mont.from_int(fr, list(range(1 << 14)), device=cuda)
+        for dec in ("DIF", "DIT"):
+            with pytest.raises(NotImplementedError):
+                fft.fft(dom, a, dec)
     assert [w.launches for w in eight] == before
+    field = (kernels.mont_mul, exp.exp_const)
+    before = [w.launches for w in field]
+    for spec in (fs.SECP256K1_FP, fs.SECP256K1_FR, fs.SECP256R1_FP,
+                 fs.SECP256R1_FR):
+        x = mont.from_int(spec, [1, 2, 3], device=cuda)
+        with pytest.raises(NotImplementedError):
+            kernels.mont_mul(spec, x, x)
+        with pytest.raises(NotImplementedError):
+            exp.exp_const(spec, x, 3)
+    assert [w.launches for w in field] == before
 
 
 @pytest.mark.cuda

@@ -160,13 +160,16 @@ def test_tower12_sparse_compressed_and_torus_forms():
 
 
 def test_other_families_raise():
-    """BW6 is not ported (BLS24 is, since its slice: tests/
-    test_torch_bls24.py); the message names the ROADMAP item."""
+    """Every pairing family is ported (BLS24 and BW6 since their slices:
+    tests/test_torch_bls24.py, tests/test_torch_bw6.py): the BW6 facade
+    gives the E6 engine, and a curve with no pairing raises."""
     P = Affine(torch.zeros(1, 8, dtype=torch.int32),
                torch.zeros(1, 8, dtype=torch.int32))
-    for name in ("bw6_633", "bw6_761"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            api.pair(name, P, P.x, P.y)
+    for name, W in (("bw6_633", 20), ("bw6_761", 24)):
+        assert api.gt_engine(name, "cpu").ones(device="cpu").shape == (
+            2, 3, W)
+    with pytest.raises(KeyError):
+        api.pair("secp256k1", P, P.x, P.y)
 
 
 # ---------------------------------------------------------------------------
