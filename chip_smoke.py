@@ -72,7 +72,25 @@ the same card, bit for bit (the field is exact: the tolerance is 0):
   lanes, b = 2, 3, r - 1, 1 and 7 among them, against a Python-int
   ladder), with ``gt_exp`` and ``gt_is_in_subgroup`` on the golden
   element; KZG as for bn254, bw6-761 at 2^20 and bw6-633 at 2^16 (the Fr
-  products on the 12- and 10-word ``mont_mul``).
+  products on the 12- and 10-word ``mont_mul``);
+* the bw6 Fr NTT on the NTT kernels at 12 words (bw6-761 Fr) and 10 words
+  (bw6-633 Fr), in the forms of the bn254 NTT path: every (decimation,
+  direction, coset) form and three round trips at 2^20 (bw6-761) and 2^16
+  (bw6-633), four-step DIF forward and DIT inverse at 2^24 (bw6-761) and
+  2^20 (bw6-633's largest domain);
+* the IOP toolkit (``protocols.iop``, ``permutation``, ``pedersen``,
+  ``multilin``): on bw6-761 at 2^20 ``to_lagrange_batch`` of 4
+  polynomials, ``evaluate_expression``, ``divide_by_x_minus_one`` of a
+  2^21 polynomial by X^(2^20) - 1 (q (X^m - 1) == p at a random point on
+  host integers) and ``build_ratio_copy_constraint`` over 3 columns; the
+  permutation argument (``prove``, ``verify`` True, and False when t2 is
+  not a permutation of t1) on bw6-761 at 2^20 and bn254 at 2^20 on their
+  KZG paths' SRSs and on bw6-633 at 2^16; Pedersen on bn254 and bw6-761
+  over 2^16 bases [i+1]G (``setup`` of two keys over one G2 point,
+  ``commit`` and ``prove_knowledge`` against [sum v_i (i+1)]G and its
+  sigma multiple, ``verify`` and ``batch_verify_multi_vk`` True and False
+  on a negated PoK); ``multilin.evaluate`` of a 2^20 bn254 table against
+  Python-int folds.
 
 Phases:
 
@@ -102,7 +120,10 @@ Phases:
    small-field kernels (both forms of ``ntt_f31_stage``) on every distinct
    call of the small-field path, each small-field transform against its
    plain stages, round trips and Python-integer samples, and each SIS
-   result against the same pipeline on the plain versions;
+   result against the same pipeline on the plain versions; the 12- and
+   10-word NTT kernels as the 8-word ones (the plain sub-NTT steps at 2^24
+   on quarters of the rows); the toolkit's results against host integers
+   and their expected verdicts;
 3. timing with CUDA events: each kernel, its plain version and its bound
    (bytes over 3.35 TB/s, or 32-bit multiply-adds over the INT32 rate,
    whichever is larger); whole transforms; the G1 and G2 MSMs at 2^20
@@ -119,7 +140,8 @@ line, a ``kernels`` JSON line (a kernel built at several widths has a row
 per width, the 10-, 12-, 20- and 24-word ones named with ``_w10``,
 ``_w12``, ``_w20`` and ``_w24``; their numbers from the bls24-315,
 bls12-381, bw6-633 and bw6-761 paths, bls24-317's and bls12-377's in the
-timings line) and, last, the device line. Exits
+timings line; the NTT kernels' 12- and 10-word rows from bw6-761 Fr at
+2^20 and bw6-633 Fr at 2^16) and, last, the device line. Exits
 non-zero, with no result, without a CUDA card or without the package
 beside it.
 """
@@ -156,6 +178,9 @@ W10_KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double",
 W10 = "_w10"
 # their 20- and 24-word rows (bw6-633 and bw6-761 Fp, G1 and G2)
 W20, W24 = "_w20", "_w24"
+# the NTT kernels, built at 8, 10 and 12 words (bn254, bw6-633 and bw6-761
+# Fr); their 10- and 12-word rows are named with W10 and W12
+NTT_KERNELS = ("ntt_radix2_stage", "ntt_radix2_block", "ntt_four_step")
 SUFFIX = {8: "", 10: W10, 12: W12, 20: W20, 24: W24}
 
 
@@ -1989,6 +2014,596 @@ class SmallFieldSlice:
         timings["small-field NTT path (host clock)"] = {"s": self.ntt_s}
 
 
+def horner(coeffs, x: int, q: int) -> int:
+    """sum_j coeffs[j] x^j mod q on host integers."""
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % q
+    return acc
+
+
+class WideNttSlice:
+    """The bw6 Fr NTT at 12 words (bw6-761 Fr, 2-adicity 46) or 10 words
+    (bw6-633 Fr, 2-adicity 20), in the forms and sizes of the bn254 NTT
+    path: every (decimation, direction, coset) form and three round trips
+    at the smaller size, four-step DIF forward and DIT inverse at the
+    larger; every NTT kernel (``ntt_radix2_stage``, ``ntt_radix2_block``,
+    ``ntt_four_step``) at that width in its ``_w12`` or ``_w10`` row."""
+
+    NTT = ("ntt_radix2_stage", "ntt_radix2_block", "ntt_four_step")
+    # the plain sub-NTT steps from 2^24 up run on quarters of the rows
+    CHUNKS, CHUNK_LOG = 4, 24
+
+    def __init__(self, dev, nprng, name: str, logs=(20, 24)):
+        import torch
+
+        from gnark_crypto_tpu_torch.specs import field as fs
+
+        self.torch, self.dev, self.nprng = torch, dev, nprng
+        self.NAME = name
+        self.spec = fs.get_field(f"{name}_fr")
+        self.W = self.spec.n_words
+        self.suffix = SUFFIX[self.W]
+        self.logs = logs
+        self.kernels = tuple(k + self.suffix for k in self.NTT) + (
+            "mont_mul" + self.suffix,)
+
+    def random_elems(self, n: int):
+        import numpy as np
+
+        w = self.nprng.integers(0, 1 << 32, size=(n, self.W),
+                                dtype=np.uint32)
+        w[:, -1] %= self.spec.q_words[-1]
+        return self.torch.from_numpy(w.view(np.int32)).to(self.dev)
+
+    # -- phase 1 -------------------------------------------------------------
+    def main_path(self):
+        from gnark_crypto_tpu_torch.ntt import fft
+        from gnark_crypto_tpu_torch.ntt.domain import Domain
+
+        spec, dev = self.spec, self.dev
+        t0 = time.perf_counter()
+        k1, k2 = self.logs
+        self.a1 = self.random_elems(1 << k1)
+        self.a2 = self.random_elems(1 << k2)
+        self.dom1 = dom1 = Domain(spec, 1 << k1, device=dev)
+        self.out1 = {}
+        for dec in (fft.DIF, fft.DIT):
+            for inv in (False, True):
+                f = fft.fft_inverse if inv else fft.fft
+                for coset in (False, True):
+                    self.out1[dec, inv, coset] = f(dom1, self.a1, dec, coset)
+        self.back = fft.fft_inverse(dom1, self.out1[fft.DIF, False, False],
+                                    fft.DIT)
+        self.back_c = fft.fft_inverse(dom1, self.out1[fft.DIF, False, True],
+                                      fft.DIT, coset=True)
+        self.back_r = fft.fft_inverse(dom1, self.out1[fft.DIT, False, False],
+                                      fft.DIF)
+        self.dom2 = Domain(spec, 1 << k2, with_coset=False, device=dev)
+        self.f2 = fft.fft(self.dom2, self.a2, fft.DIF)
+        self.back2 = fft.fft_inverse(self.dom2, self.f2, fft.DIT)
+        self.torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # -- phase 2 -------------------------------------------------------------
+    def sub_ntt_steps(self, dom):
+        from gnark_crypto_tpu_torch.ntt import four_step
+
+        steps = []
+        for inv in (False, True):
+            k1, k2, tw1, tw2, twist = four_step.tables(dom, inv)
+            if inv:
+                steps += [(tw2, k2, 1 << k1, False, True, twist),
+                          (tw1, k1, 1 << k2, True, True, None)]
+            else:
+                steps += [(tw1, k1, 1 << k2, True, False, twist),
+                          (tw2, k2, 1 << k1, False, False, None)]
+        return steps
+
+    def sub_ntt_plain_chunked(self, a, tw, log_s, other, cols, dit, twist,
+                              chunks: int):
+        """The plain sub-NTT step over ``chunks`` slices of the independent
+        rows (columns of the (S, other) view, or rows of the (other, S)
+        view): the same values, a quarter of the int64 temporaries."""
+        from gnark_crypto_tpu_torch.ntt import four_step
+
+        torch, spec, W = self.torch, self.spec, self.W
+        if chunks == 1:
+            return four_step.sub_ntt_plain(spec, a, tw, log_s, other, cols,
+                                           dit, twist)
+        S, step = 1 << log_s, other // chunks
+        if cols:
+            v = a.reshape(S, other, W)
+            tv = None if twist is None else twist.reshape(S, other, W)
+            parts = [four_step.sub_ntt_plain(
+                spec, v[:, c:c + step].reshape(-1, W), tw, log_s, step,
+                True, dit, None if tv is None
+                else tv[:, c:c + step].reshape(-1, W)).reshape(S, step, W)
+                for c in range(0, other, step)]
+            return torch.cat(parts, dim=1).reshape(-1, W)
+        v = a.reshape(other, S, W)
+        tv = None if twist is None else twist.reshape(other, S, W)
+        return torch.cat([four_step.sub_ntt_plain(
+            spec, v[c:c + step].reshape(-1, W), tw, log_s, step, False, dit,
+            None if tv is None else tv[c:c + step].reshape(-1, W))
+            for c in range(0, other, step)]).reshape(-1, W)
+
+    def plain_transform(self, dom, a, dec, inv, coset):
+        """Plain radix-2 stages and plain products only."""
+        from gnark_crypto_tpu_torch.field.kernels import mont_mul_plain
+        from gnark_crypto_tpu_torch.ntt import fft, radix2
+
+        spec = self.spec
+        if not inv:
+            if coset:
+                table = dom.coset_table
+                a = mont_mul_plain(spec, a, fft.bit_reverse(table)
+                                   if dec == fft.DIT else table)
+            return radix2.run_plain(dom, a, dec, False)
+        a = radix2.run_plain(dom, a, dec, True)
+        scale = dom.cardinality_inv
+        if coset:
+            table = dom.coset_table_inv
+            scale = mont_mul_plain(spec, fft.bit_reverse(table)
+                                   if dec == fft.DIF else table, scale)
+        return mont_mul_plain(spec, a, scale)
+
+    def checks(self, compare, check):
+        from gnark_crypto_tpu_torch.field import mont
+        from gnark_crypto_tpu_torch.ntt import fft, four_step, radix2
+        from gnark_crypto_tpu_torch.ntt.domain import bitrev_perm
+
+        torch, spec, sfx = self.torch, self.spec, self.suffix
+        q = spec.modulus
+        name = self.spec.name
+        k1, k2 = self.logs
+        tw1 = self.dom1.twiddles0
+        t = min(k1, radix2.TILE_LOG)
+        s0 = k1 - t
+        for dit in (False, True):
+            z = self.a1
+            for s in (range(s0 - 1, -1, -1) if dit else range(s0)):
+                got = radix2.stage(spec, z, tw1, k1, s, dit)
+                compare("ntt_radix2_stage" + sfx, got,
+                        radix2.stage_plain(spec, z, tw1, k1, s, dit),
+                        f"{name} 2^{k1} stage {s} dit={dit}")
+                z = got
+            compare("ntt_radix2_block" + sfx,
+                    radix2.block(spec, z, tw1, s0, t, dit),
+                    radix2.block_plain(spec, z, tw1, s0, t, dit),
+                    f"{name} 2^{k1} tail of {t} stages dit={dit}")
+        for dom, a in ((self.dom1, self.a1), (self.dom2, self.a2)):
+            chunks = self.CHUNKS if dom.k >= self.CHUNK_LOG else 1
+            for tw, log_s, other, cols, dit, twist in self.sub_ntt_steps(dom):
+                args = (spec, a, tw, log_s, other, cols, dit, twist)
+                compare("ntt_four_step" + sfx, four_step.sub_ntt(*args),
+                        self.sub_ntt_plain_chunked(a, tw, log_s, other, cols,
+                                                   dit, twist, chunks),
+                        f"{name} 2^{dom.k} {'columns' if cols else 'rows'} "
+                        f"dit={dit} twist={twist is not None}")
+        for (dec, inv, coset), got in self.out1.items():
+            want = self.plain_transform(self.dom1, self.a1, dec, inv, coset)
+            check(torch.equal(got, want), f"{name} 2^{k1} {dec} "
+                  f"inverse={inv} coset={coset} == plain stages")
+        check(torch.equal(self.back, self.a1),
+              f"{name} 2^{k1} DIT inverse(DIF fft(a)) == a")
+        check(torch.equal(self.back_c, self.a1),
+              f"{name} 2^{k1} coset round trip == a")
+        check(torch.equal(self.back_r, self.a1),
+              f"{name} 2^{k1} DIF inverse(DIT fft(a)) == a")
+        t0 = time.perf_counter()
+        want2 = self.plain_transform(self.dom2, self.a2, fft.DIF, False,
+                                     False)
+        torch.cuda.synchronize()
+        check(torch.equal(self.f2, want2), f"{name} 2^{k2} DIF forward "
+              f"(four-step) == plain stages ({time.perf_counter() - t0:.1f}"
+              " s)")
+        del want2
+        check(torch.equal(self.back2, self.a2),
+              f"{name} 2^{k2} DIT inverse(DIF fft(a)) == a")
+        rng = random.Random(SEED + self.W)
+        for table, base, what in (
+                (self.dom2.twiddles0, self.dom2.generator_int,
+                 f"2^{k2} twiddles"),
+                (self.dom1.coset_table, self.dom1.shift_int,
+                 f"2^{k1} coset table")):
+            pts = rng.sample(range(table.shape[0]), 32)
+            check(mont.to_int(spec, table[pts])
+                  == [pow(base, i, q) for i in pts],
+                  f"{name} {what} == powers at 32 points")
+        a_int = mont.to_int(spec, self.a1)
+        rev = bitrev_perm(1 << k1)
+        for i in rng.sample(range(1 << k1), 2):
+            wi = pow(self.dom1.generator_int, i, q)
+            check(mont.to_int(spec, self.out1[fft.DIF, False, False][
+                int(rev[i])]) == horner(a_int, wi, q),
+                  f"{name} 2^{k1} DIF output at frequency {i} == Horner sum")
+
+    # -- phase 3 -------------------------------------------------------------
+    def timings(self, cuda_ms, timings, kernel_rows):
+        """Each kernel at both sizes and its plain version at the smaller
+        (the kernels line's row); every form of the whole transform."""
+        from gnark_crypto_tpu_torch.field import kernels
+        from gnark_crypto_tpu_torch.ntt import fft, four_step, radix2
+
+        spec, sfx, W = self.spec, self.suffix, self.W
+        eb, mm = 4 * W, mads_per_product(W)
+        for dom, a in ((self.dom1, self.a1), (self.dom2, self.a2)):
+            n, k = dom.n, dom.k
+            tag = f"{spec.name} 2^{k}"
+            t = min(k, radix2.TILE_LOG)
+            s0 = k - t
+            tw0 = dom.twiddles0
+            k1, k2, tw1, tw2, twist = four_step.tables(dom, False)
+            S1, S2 = 1 << k1, 1 << k2
+            plain = dom is self.dom1
+            rows = {
+                "ntt_radix2_stage": (
+                    lambda: [radix2.stage(spec, a, tw0, k, s, False)
+                             for s in range(s0)],
+                    lambda: [radix2.stage_plain(spec, a, tw0, k, s, False)
+                             for s in range(s0)], s0,
+                    bound(sum(2 * eb * n + eb * (n >> (s + 1))
+                              for s in range(s0)) / s0, mm * n / 2)),
+                "ntt_radix2_block": (
+                    lambda: radix2.block(spec, a, tw0, s0, t, False),
+                    lambda: radix2.block_plain(spec, a, tw0, s0, t, False),
+                    1, bound(2 * eb * n + eb * (1 << (t - 1)),
+                             mm * t * n / 2)),
+                "ntt_four_step": (
+                    lambda: (four_step.sub_ntt(spec, a, tw1, k1, S2, True,
+                                               False, twist),
+                             four_step.sub_ntt(spec, a, tw2, k2, S1, False,
+                                               False)),
+                    lambda: (four_step.sub_ntt_plain(spec, a, tw1, k1, S2,
+                                                     True, False, twist),
+                             four_step.sub_ntt_plain(spec, a, tw2, k2, S1,
+                                                     False, False)), 2,
+                    bound((5 * eb * n + eb * (S1 + S2) / 2) / 2,
+                          mm * (k * n / 2 + n) / 2)),
+            }
+            for name, (kfn, pfn, per_call, (b_ms, b_by)) in rows.items():
+                if name == "ntt_radix2_stage" and s0 == 0:
+                    continue
+                row = {"ms": cuda_ms(kfn, reps=5) / per_call,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "launches_per_call": per_call}
+                if plain:
+                    row["plain_ms"] = cuda_ms(pfn, reps=1,
+                                              rounds=1) / per_call
+                    kernel_rows[name + sfx] = row
+                timings[f"{name} {tag}"] = row
+            b = self.random_elems(n)
+            timings[f"mont_mul {tag}"] = {
+                "ms": cuda_ms(lambda: kernels.mont_mul(spec, a, b), reps=5),
+                "bound_ms": bound(3 * eb * n, mm * n)[0]}
+            del b
+            forms = ([(d, i) for d in (fft.DIF, fft.DIT)
+                      for i in (False, True)] if plain
+                     else [(fft.DIF, False), (fft.DIT, True)])
+            for dec, inv in forms:
+                f = fft.fft_inverse if inv else fft.fft
+                path = ("four-step" if four_step.supported(dom, dec, inv)
+                        else "radix-2")
+                ms = cuda_ms(lambda: f(dom, a, dec), reps=3)
+                timings[f"fft {dec} inverse={inv} {tag} ({path})"] = {
+                    "ms": ms, "elems_per_s": n / (ms / 1e3)}
+
+
+class ToolkitSlice:
+    """The IOP toolkit on one curve (``protocols.iop``, ``permutation``,
+    ``pedersen``, ``multilin``), every transform on the NTT kernels at the
+    curve's Fr width and every commitment on its G1 kernels:
+
+    * iop (``iop_log``): ``to_lagrange_batch`` of 4 polynomials,
+      ``evaluate_expression`` over them, ``divide_by_x_minus_one`` of a
+      size-2N polynomial by X^N - 1, ``build_ratio_copy_constraint`` over 3
+      columns under a permutation of the 3N indices;
+    * ``permutation.prove`` and ``verify`` at 2^log_n on the KZG path's SRS
+      (the same curve's ``KzgSlice``), True on t2 a permutation of t1 and
+      False when one value of t2 is changed;
+    * Pedersen (``pedersen_log``) over the MSM path's bases [i+1]G:
+      ``setup`` of two keys over one G2 point, ``commit``,
+      ``prove_knowledge``, ``verify`` (True, False on a tampered PoK),
+      ``batch_verify_multi_vk`` over the two keys (True, False with one
+      PoK tampered);
+    * ``multilin.evaluate`` of a 2^multilin_log table (``multilin_log``)."""
+
+    def __init__(self, dev, nprng, name: str, log_n: int, kzg_slice,
+                 msm_slice=None, iop_log: int | None = None,
+                 pedersen_log: int | None = None,
+                 multilin_log: int | None = None):
+        import torch
+
+        from gnark_crypto_tpu_torch.curve.jacobian import curve_ops
+        from gnark_crypto_tpu_torch.specs import curve as cs
+
+        self.torch, self.dev, self.nprng = torch, dev, nprng
+        self.NAME = name
+        self.g1 = curve_ops(cs.get_curve(f"{name}_g1"))
+        self.fr_spec = self.g1.spec.fr
+        self.r = self.fr_spec.modulus
+        self.n = 1 << log_n
+        self.kzg, self.msm = kzg_slice, msm_slice
+        self.iop_log, self.pedersen_log = iop_log, pedersen_log
+        self.multilin_log = multilin_log
+        self.wall = {}
+        fr_sfx = SUFFIX[self.fr_spec.n_words]
+        fp_sfx = SUFFIX[self.g1.spec.fp.n_words]
+        self.kernels = (
+            "mont_mul" + fr_sfx, "exp_const" + fr_sfx,
+            "ntt_four_step" + fr_sfx,
+            *(k + fp_sfx for k in ("exp_const", "jac_add", "jac_double",
+                                   "affine_prep", "affine_finish",
+                                   "jac_fold_windows", "vm_execute")))
+        if pedersen_log and name == "bn254":
+            # setup's G2 ladder on the Fp2 kernels
+            self.kernels += ("jac_add2", "jac_double2")
+
+    def timed(self, label, fn):
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if isinstance(out, torch.Tensor) and out.dtype == torch.bool:
+            out = bool(out)
+        torch.cuda.synchronize()
+        self.wall.setdefault(label, []).append(time.perf_counter() - t0)
+        return out
+
+    def fr(self, ks, mont: bool = False):
+        return self.g1.fr.from_int([k % self.r for k in ks], mont=mont,
+                                   device=self.dev)
+
+    def random_fr(self, n: int):
+        return random_scalars(self.nprng, self.g1.spec, n, self.dev)
+
+    # -- phase 1 -------------------------------------------------------------
+    def main_path(self):
+        t0 = time.perf_counter()
+        if self.iop_log:
+            self.run_iop()
+        self.run_permutation()
+        if self.pedersen_log:
+            self.run_pedersen()
+        if self.multilin_log:
+            self.run_multilin()
+        self.torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def run_iop(self):
+        from gnark_crypto_tpu_torch.protocols import iop
+
+        torch, spec, dev = self.torch, self.fr_spec, self.dev
+        n = 1 << self.iop_log
+        rng = random.Random(SEED + 13)
+        self.polys = [iop.from_canonical(spec, self.random_fr(n))
+                      for _ in range(4)]
+        self.lag = self.timed("to_lagrange_batch", lambda:
+                              iop.to_lagrange_batch(self.polys))
+        self.expr = self.timed("evaluate_expression", lambda:
+                               iop.evaluate_expression(
+                                   spec, lambda e, a, b, c, d: e.sub(
+                                       e.add(e.mul(a, b), c), d),
+                                   *self.polys))
+        # p = (X^n - 1) h, size 2n: the quotient is h
+        self.h = self.random_fr(n)
+        p = torch.cat([self.g1.fr.neg(self.h), self.h])
+        self.p = iop.from_canonical(spec, p)
+        self.quot = self.timed("divide_by_x_minus_one", lambda:
+                               iop.divide_by_x_minus_one(self.p))
+        # 3 Lagrange columns and sigma a product of disjoint transpositions
+        # of the 3n indices, each pair's two values equal: the grand
+        # product wraps to 1
+        k = 3
+        gen = torch.Generator().manual_seed(SEED + 3)
+        order = torch.randperm(k * n, generator=gen).to(dev)
+        sigma = torch.empty(k * n, dtype=torch.int64, device=dev)
+        sigma[order[0::2]] = order[1::2]
+        sigma[order[1::2]] = order[0::2]
+        vals = self.random_fr(k * n)
+        vals[order[1::2]] = vals[order[0::2]]
+        self.sigma, self.cols = sigma, vals.reshape(k, n, -1)
+        self.beta, self.gamma = rng.randrange(self.r), rng.randrange(self.r)
+        entries = [iop.Polynomial(spec, self.cols[j], iop.Basis.LAGRANGE,
+                                  iop.Layout.REGULAR) for j in range(k)]
+        self.z = self.timed("build_ratio_copy_constraint", lambda:
+                            iop.build_ratio_copy_constraint(
+                                spec, entries, sigma, self.beta,
+                                self.gamma))
+
+    def run_permutation(self):
+        from gnark_crypto_tpu_torch.protocols import permutation
+
+        torch, name = self.torch, self.NAME
+        srs = self.kzg.srs
+        self.t1 = self.random_fr(self.n)
+        gen = torch.Generator().manual_seed(SEED + 7)
+        perm = torch.randperm(self.n, generator=gen).to(self.dev)
+        t2 = self.t1[perm]
+        self.proof = self.timed("permutation prove", lambda:
+                                permutation.prove(name, srs.pk, self.t1, t2))
+        self.ok = self.timed("permutation verify", lambda:
+                             permutation.verify(name, srs.vk, self.proof))
+        t2_bad = t2.clone()
+        t2_bad[0] = self.fr([self.g1.fr.to_int(t2[:1], mont=False)[0] + 1])[0]
+        bad = self.timed("permutation prove", lambda: permutation.prove(
+            name, srs.pk, self.t1, t2_bad))
+        # its own label: the host relation at eta refuses this proof
+        # before either pairing check
+        self.bad = self.timed("permutation verify (t2 changed)", lambda:
+                              permutation.verify(name, srs.vk, bad))
+
+    def run_pedersen(self):
+        from gnark_crypto_tpu_torch.curve.jacobian import Affine
+        from gnark_crypto_tpu_torch.protocols import pedersen
+
+        name, g1 = self.NAME, self.g1
+        nb = 1 << self.pedersen_log
+        rng = random.Random(SEED + 17)
+        bases = Affine(self.msm.p16.x[:nb], self.msm.p16.y[:nb])
+        self.sigmas = [rng.randrange(1, self.r) for _ in range(2)]
+        # two ceremonies over one G2 point, as batch_verify_multi_vk asks
+        g2_scalar = rng.randrange(2, 1 << 16)
+        keys = [self.timed("pedersen setup", lambda s=s: pedersen.setup(
+            name, [bases], sigma=s, g2_scalar=g2_scalar))
+            for s in self.sigmas]
+        self.values = [self.random_fr(nb) for _ in range(2)]
+        self.coms = [self.timed("pedersen commit", lambda k=k, v=v:
+                                pedersen.commit(name, k[0][0], v))
+                     for k, v in zip(keys, self.values)]
+        self.poks = [self.timed("pedersen prove_knowledge", lambda k=k, v=v:
+                                pedersen.prove_knowledge(name, k[0][0], v))
+                     for k, v in zip(keys, self.values)]
+        vk = keys[0][1]
+        self.ped_ok = self.timed("pedersen verify", lambda: pedersen.verify(
+            name, vk, self.coms[0], self.poks[0]))
+        tampered = Affine(self.poks[0].x, g1.fp.neg(self.poks[0].y))
+        self.ped_bad = self.timed("pedersen verify", lambda: pedersen.verify(
+            name, vk, self.coms[0], tampered))
+        vks = [k[1] for k in keys]
+        coeff = rng.randrange(1, self.r)
+        self.multi_ok = self.timed(
+            "pedersen batch_verify_multi_vk", lambda:
+            pedersen.batch_verify_multi_vk(name, vks, self.coms, self.poks,
+                                           coeff))
+        self.multi_bad = self.timed(
+            "pedersen batch_verify_multi_vk", lambda:
+            pedersen.batch_verify_multi_vk(name, vks, self.coms,
+                                           [self.poks[0], tampered], coeff))
+
+    def run_multilin(self):
+        from gnark_crypto_tpu_torch.protocols import multilin
+
+        spec = self.fr_spec
+        k = self.multilin_log
+        self.table = self.g1.fr.to_mont(self.random_fr(1 << k))
+        self.coords = self.g1.fr.to_mont(self.random_fr(k))
+        self.ml = self.timed("multilin evaluate", lambda: multilin.evaluate(
+            spec, self.table, self.coords))
+
+    # -- phase 2 -------------------------------------------------------------
+    def checks(self, compare, check):
+        tag = f"{self.NAME} 2^{self.n.bit_length() - 1}"
+        if self.iop_log:
+            self.check_iop(check)
+        check(self.ok is True, f"permutation {tag}: verify True on t2 a "
+              "permutation of t1")
+        check(self.bad is False, f"permutation {tag}: verify False with one "
+              "value of t2 changed")
+        if self.pedersen_log:
+            self.check_pedersen(check)
+        if self.multilin_log:
+            from gnark_crypto_tpu_torch.field import mont
+
+            q = self.r
+            table = mont.to_int(self.fr_spec, self.table)
+            for r in mont.to_int(self.fr_spec, self.coords):
+                mid = len(table) // 2
+                table = [(table[i] + r * (table[i + mid] - table[i])) % q
+                         for i in range(mid)]
+            check(mont.to_int(self.fr_spec, self.ml) == table[0],
+                  f"multilin {self.NAME} 2^{self.multilin_log}: evaluate == "
+                  "Python-int folds")
+
+    def check_iop(self, check):
+        from gnark_crypto_tpu_torch.field import mont
+        from gnark_crypto_tpu_torch.protocols import iop
+
+        torch, spec = self.torch, self.fr_spec
+        q = self.r
+        n = 1 << self.iop_log
+        tag = f"iop {self.NAME} 2^{self.iop_log}"
+        rng = random.Random(SEED + 19)
+        dom = iop.domain(spec, n, self.dev)
+        single = [p.to_lagrange().to_regular() for p in self.polys]
+        check(all(torch.equal(a.values, b.values)
+                  for a, b in zip(self.lag, single))
+              and all(p.basis == iop.Basis.LAGRANGE
+                      and p.layout == iop.Layout.REGULAR for p in self.lag),
+              f"{tag}: to_lagrange_batch of 4 == each to_lagrange")
+        i = rng.randrange(n)
+        c0 = mont.to_int(spec, self.polys[0].values, mont=False)
+        check(mont.to_int(spec, self.lag[0].values[i:i + 1], mont=False)
+              == [horner(c0, pow(dom.generator_int, i, q), q)],
+              f"{tag}: Lagrange value {i} == Python-int Horner at g^{i}")
+        idx = rng.sample(range(n), 16)
+        vals = [mont.to_int(spec, p.values[idx], mont=False)
+                for p in self.lag]
+        want = [(a * b + c - d) % q for a, b, c, d in zip(*vals)]
+        check(mont.to_int(spec, self.expr.values[idx], mont=False) == want
+              and self.expr.basis == iop.Basis.LAGRANGE,
+              f"{tag}: evaluate_expression a*b + c - d at 16 points")
+        check(torch.equal(self.quot.values[:n], self.h)
+              and bool((self.quot.values[n:] == 0).all()),
+              f"{tag}: divide_by_x_minus_one((X^n - 1) h) == h, N = 2^"
+              f"{self.iop_log + 1}")
+        z = rng.randrange(q)
+        pz = horner(mont.to_int(spec, self.p.values, mont=False), z, q)
+        qz = horner(mont.to_int(spec, self.quot.values, mont=False), z, q)
+        check(qz * (pow(z, n, q) - 1) % q == pz,
+              f"{tag}: q(z) (z^n - 1) == p(z) at a random z")
+        # Z: Z_0 = 1, Z_(i+1) = Z_i ratio_i, and the wrap Z_(n-1) ratio = 1
+        u, g = dom.shift_int, dom.generator_int
+        sigma = self.sigma.tolist()
+        zv = self.z.values
+        beta, gamma = self.beta, self.gamma
+
+        def ratio(i):
+            num = den = 1
+            for j in range(3):
+                f = mont.to_int(spec, self.cols[j, i:i + 1], mont=False)[0]
+                s = sigma[j * n + i]
+                num = num * (f + beta * pow(u, j, q) * pow(g, i, q) + gamma)
+                den = den * (f + beta * pow(u, s // n, q) * pow(g, s % n, q)
+                             + gamma)
+            return num * pow(den, -1, q) % q
+
+        zi = mont.to_int(spec, zv, mont=False)
+        ok = zi[0] == 1
+        for i in rng.sample(range(n - 1), 4):
+            ok &= zi[i + 1] == zi[i] * ratio(i) % q
+        check(ok, f"{tag}: ratio copy constraint Z_0 = 1, Z_(i+1) = Z_i "
+              "ratio_i at 4 points")
+        check(zi[n - 1] * ratio(n - 1) % q == 1,
+              f"{tag}: ratio copy constraint wraps to 1 under sigma")
+
+    def check_pedersen(self, check):
+        from gnark_crypto_tpu_torch.field import mont
+
+        g1, r = self.g1, self.r
+        fp = g1.spec.fp
+        p, a = fp.modulus, g1.spec.a
+        nb = 1 << self.pedersen_log
+        tag = f"pedersen {self.NAME} 2^{self.pedersen_log}"
+
+        def ints(pt):
+            return list(zip(mont.to_int(fp, pt.x), mont.to_int(fp, pt.y)))
+
+        gen = (g1.spec.gx, g1.spec.gy)
+        for i in range(2):
+            w = weighted_total(self.values[i], nb, r)
+            check(ints(self.coms[i]) == [oracle_mul(gen, w, p, a)],
+                  f"{tag}: commit {i} == [sum v_j (j + 1)]G")
+            check(ints(self.poks[i]) == [oracle_mul(
+                gen, w * self.sigmas[i] % r, p, a)],
+                  f"{tag}: prove_knowledge {i} == [sigma sum v_j (j + 1)]G")
+        check(self.ped_ok is True, f"{tag}: verify True")
+        check(self.ped_bad is False, f"{tag}: verify False on a negated PoK")
+        check(self.multi_ok is True, f"{tag}: batch_verify_multi_vk over 2 "
+              "keys True")
+        check(self.multi_bad is False, f"{tag}: batch_verify_multi_vk False "
+              "with one PoK negated")
+
+    # -- phase 3 -------------------------------------------------------------
+    def timings(self, cuda_ms, timings, kernel_rows):
+        import numpy as np
+
+        for label, per in self.wall.items():
+            timings[f"toolkit {self.NAME} 2^{self.n.bit_length() - 1} "
+                    f"{label}"] = {"s": float(np.median(per)), "runs": per}
+
+
 def main() -> int:
     import torch
 
@@ -2075,6 +2690,20 @@ def main() -> int:
     bw6_pair = [Bw6PairingSlice(dev, bw6_rng, c) for c in bw6]
     bw6_kzg = [KzgSlice(dev, bw6_rng, "bw6_761", log_n=20),
                KzgSlice(dev, bw6_rng, "bw6_633", log_n=16)]
+    # the bw6 Fr NTT at 12 words (bw6-761 Fr: 2^20 and 2^24) and 10 words
+    # (bw6-633 Fr: 2^16 and 2^20, its largest domain), and the IOP toolkit:
+    # iop at 2^20, the permutation argument on the bw6-761 KZG SRS and
+    # Pedersen over 2^16 bases on bw6-761; the permutation argument and
+    # Pedersen on bn254 (2^20, on the bn254 KZG SRS), with multilin over a
+    # 2^20 table; the permutation argument on bw6-633 at 2^16
+    tk_rng = np.random.default_rng(SEED + 13)
+    wide_ntt = [WideNttSlice(dev, tk_rng, "bw6_761", logs=(20, 24)),
+                WideNttSlice(dev, tk_rng, "bw6_633", logs=(16, 20))]
+    toolkit = [ToolkitSlice(dev, tk_rng, "bw6_761", 20, bw6_kzg[0],
+                            bw6_msm[0], iop_log=20, pedersen_log=16),
+               ToolkitSlice(dev, tk_rng, "bn254", 20, kzg, msm,
+                            pedersen_log=16, multilin_log=20),
+               ToolkitSlice(dev, tk_rng, "bw6_633", 16, bw6_kzg[1])]
     ntt_kernels = ("mont_mul", "ntt_radix2_stage", "ntt_radix2_block",
                    "ntt_four_step")
     wrappers = {"mont_mul": kernels.mont_mul,
@@ -2090,7 +2719,11 @@ def main() -> int:
         24-word ones under name + W10, W12, W20 and W24."""
         counts = {}
         for name, w in wrappers.items():
-            if name in W12_KERNELS:
+            if name in NTT_KERNELS:
+                counts[name] = w.launches_by_width.get(8, 0)
+                counts[name + W10] = w.launches_by_width.get(10, 0)
+                counts[name + W12] = w.launches_by_width.get(12, 0)
+            elif name in W12_KERNELS:
                 counts[name] = w.launches_by_width.get(8, 0)
                 counts[name + W12] = w.launches_by_width.get(12, 0)
                 if name in W10_KERNELS:
@@ -2177,12 +2810,17 @@ def main() -> int:
                    for sl in bw6_pair]
     bw6_counts += [drive(f"{sl.NAME} KZG", sl.main_path, sl.kernels)
                    for sl in bw6_kzg]
+    tk_counts = [drive(f"{sl.spec.name} NTT", sl.main_path, sl.kernels)
+                 for sl in wide_ntt]
+    tk_counts += [drive(f"{sl.NAME} toolkit", sl.main_path, sl.kernels)
+                  for sl in toolkit]
     path_counts = (ntt_counts, msm_counts, pair_counts, g2_counts,
                    kzg_counts, small_counts, *bls_counts, *bls24_counts,
-                   *bw6_counts)
+                   *bw6_counts, *tk_counts)
     row_names = (list(wrappers) + [k + W12 for k in W12_KERNELS]
                  + [k + W10 for k in W10_KERNELS]
-                 + [k + w for w in (W20, W24) for k in W10_KERNELS])
+                 + [k + w for w in (W20, W24) for k in W10_KERNELS]
+                 + [k + w for w in (W10, W12) for k in NTT_KERNELS])
     launches = {name: sum(c[name] for c in path_counts)
                 for name in row_names}
     for name in W12_KERNELS:
@@ -2196,11 +2834,15 @@ def main() -> int:
             check(sum(c[name + w] for c in bw6_counts) > 0,
                   f"{name} launched at {w[2:]} words on the bw6 paths "
                   f"({launches[name + w]})")
+    for name in NTT_KERNELS:
+        for sl, w, c in zip(wide_ntt, (W12, W10), tk_counts):
+            check(c[name + w] > 0, f"{name} launched at {w[2:]} words on "
+                  f"the {sl.spec.name} NTT path ({c[name + w]})")
     print("launches by path: " + json.dumps(
         {"ntt": ntt_counts, "msm": msm_counts, "pairing": pair_counts,
          "g2_msm": g2_counts, "kzg": kzg_counts, "small": small_counts,
-         "bls12": bls_counts, "bls24": bls24_counts, "bw6": bw6_counts}),
-          flush=True)
+         "bls12": bls_counts, "bls24": bls24_counts, "bw6": bw6_counts,
+         "bw6_ntt_and_toolkit": tk_counts}), flush=True)
 
     # ---------------------------------------------------------------- phase 2
     # seconds of each step of phases 2 and 3, printed at the end
@@ -2322,7 +2964,7 @@ def main() -> int:
     spent["checks NTT"] = time.perf_counter() - t_step
     for sl in (msm, pairing, g2msm, kzg, small, *bls_msm, *bls_pair,
                *bls_g2, *bls_kzg, *bls24_msm, *bls24_pair, *bls24_kzg,
-               *bw6_msm, *bw6_pair, *bw6_kzg):
+               *bw6_msm, *bw6_pair, *bw6_kzg, *wide_ntt, *toolkit):
         timed(f"checks {slice_label(sl)}", sl.checks, compare, check)
     t_step = time.perf_counter()
 
@@ -2443,6 +3085,10 @@ def main() -> int:
                      (bw6_kzg[1], {})):
         timed(f"timings {slice_label(sl)}", sl.timings, cuda_ms, timings,
               into)
+    # the 12- and 10-word NTT rows from bw6-761 and bw6-633 Fr
+    for sl in (*wide_ntt, *toolkit):
+        timed(f"timings {slice_label(sl)}", sl.timings, cuda_ms, timings,
+              kernel_rows)
 
     kernel_line = []
     sources = {

@@ -18,6 +18,14 @@ gnark bytes: ``ntt.domain.domain_from_bytes`` reads what the JAX
 BLS24), crosses coordinate by coordinate (:func:`point_from_jax`,
 :func:`point_to_jax`); scalars cross with ``mont_form=False``.
 
+Protocol state crosses field by field on the same rule: an IOP
+``Polynomial`` (its plain values, basis and layout by name;
+:func:`poly_from_jax`, :func:`poly_to_jax`), a permutation ``Proof``
+(:func:`perm_proof_from_jax`, :func:`perm_proof_to_jax`) and the Pedersen
+keys (:func:`pedersen_keys_from_jax`, :func:`pedersen_keys_to_jax`). The
+"to JAX" side gives numpy and plain Python containers of the same fields,
+which the caller wraps in the JAX package's types.
+
 The small fields use the same R on both sides (2^32 for koalabear and
 babybear, 2^64 for goldilocks), so their elements cross as bit views:
 ``uint32 (...)`` <-> ``int32 (...)`` for the f31 engine, ``uint32 (..., 2)``
@@ -114,3 +122,114 @@ def point_to_jax(spec: FieldSpec, p):
     """A port point -> the same kind of NamedTuple holding canonical JAX
     limb arrays (numpy); wrap with the JAX ``Affine``/``Jac`` to use it."""
     return type(p)(*(to_jax_limbs(spec, c) for c in p))
+
+
+# ---------------------------------------------------------------------------
+# protocol state: IOP polynomials, permutation proofs, Pedersen keys
+# ---------------------------------------------------------------------------
+
+def poly_from_jax(p, device=mont.DEFAULT_DEVICE):
+    """A JAX ``iop.Polynomial`` -> the port's, same field, plain values,
+    basis and layout."""
+    from gnark_crypto_tpu_torch.protocols import iop
+    from gnark_crypto_tpu_torch.specs.field import get_field
+
+    spec = get_field(p.spec.name)
+    vals = from_jax_limbs(spec, np.asarray(p.values), mont_form=False,
+                          device=device)
+    return iop.Polynomial(spec, vals, iop.Basis[p.basis.name],
+                          iop.Layout[p.layout.name])
+
+
+def poly_to_jax(p) -> dict:
+    """The port's ``Polynomial`` -> {"spec": field name, "values": plain
+    canonical JAX limbs (numpy), "basis": name, "layout": name}."""
+    return {"spec": p.spec.name,
+            "values": to_jax_limbs(p.spec, p.values, mont_form=False),
+            "basis": p.basis.name, "layout": p.layout.name}
+
+
+def _fr_from_jax(spec: FieldSpec, a, device) -> torch.Tensor:
+    return from_jax_limbs(spec, np.asarray(a), mont_form=False,
+                          device=device)
+
+
+def _affine_from_jax(spec: FieldSpec, p, device) -> Affine:
+    return Affine(*(from_jax_limbs(spec, np.asarray(c), device=device)
+                    for c in (p.x, p.y)))
+
+
+def perm_proof_from_jax(name: str, proof, device=mont.DEFAULT_DEVICE):
+    """A JAX ``permutation.Proof`` over curve ``name`` -> the port's."""
+    from gnark_crypto_tpu_torch.protocols import kzg, permutation
+    from gnark_crypto_tpu_torch.specs import curve as cs
+
+    g1 = cs.get_curve(f"{name}_g1")
+    fp, fr = g1.fp, g1.fr
+
+    def pt(p):
+        return _affine_from_jax(fp, p, device)
+
+    return permutation.Proof(
+        size=int(proof.size), t1=pt(proof.t1), t2=pt(proof.t2),
+        z=pt(proof.z), q=pt(proof.q),
+        batched=kzg.BatchOpeningProof(
+            h=pt(proof.batched.h),
+            claimed_values=_fr_from_jax(fr, proof.batched.claimed_values,
+                                        device)),
+        shifted=kzg.OpeningProof(
+            h=pt(proof.shifted.h),
+            claimed_value=_fr_from_jax(fr, proof.shifted.claimed_value,
+                                       device)))
+
+
+def perm_proof_to_jax(name: str, proof) -> dict:
+    """The port's permutation ``Proof`` -> the same fields as numpy: points
+    as (x, y) canonical JAX limbs, claimed values as plain limbs."""
+    from gnark_crypto_tpu_torch.specs import curve as cs
+
+    g1 = cs.get_curve(f"{name}_g1")
+
+    def pt(p):
+        return point_to_jax(g1.fp, p)
+
+    return {"size": proof.size, "t1": pt(proof.t1), "t2": pt(proof.t2),
+            "z": pt(proof.z), "q": pt(proof.q),
+            "batched": {"h": pt(proof.batched.h),
+                        "claimed_values": to_jax_limbs(
+                            g1.fr, proof.batched.claimed_values,
+                            mont_form=False)},
+            "shifted": {"h": pt(proof.shifted.h),
+                        "claimed_value": to_jax_limbs(
+                            g1.fr, proof.shifted.claimed_value,
+                            mont_form=False)}}
+
+
+def pedersen_keys_from_jax(name: str, pks, vk, device=mont.DEFAULT_DEVICE):
+    """JAX Pedersen keys (a list of ``ProvingKey`` and a ``VerifyingKey``)
+    over curve ``name`` -> the port's (pks, vk). The G2 points cross over
+    the curve's base field: Fp2 or Fp4 coordinates as they are, or Fp for
+    bw6."""
+    from gnark_crypto_tpu_torch.protocols import pedersen
+    from gnark_crypto_tpu_torch.specs import curve as cs
+
+    fp = cs.get_curve(f"{name}_g1").fp
+    out = [pedersen.ProvingKey(_affine_from_jax(fp, pk.basis, device),
+                               _affine_from_jax(fp, pk.basis_exp_sigma,
+                                                device)) for pk in pks]
+    return out, pedersen.VerifyingKey(
+        _affine_from_jax(fp, vk.g, device),
+        _affine_from_jax(fp, vk.g_sigma_neg, device))
+
+
+def pedersen_keys_to_jax(name: str, pks, vk) -> dict:
+    """The port's Pedersen keys -> {"pks": [{"basis", "basis_exp_sigma"}],
+    "vk": {"g", "g_sigma_neg"}}, each point (x, y) canonical JAX limbs."""
+    from gnark_crypto_tpu_torch.specs import curve as cs
+
+    fp = cs.get_curve(f"{name}_g1").fp
+    return {"pks": [{"basis": point_to_jax(fp, pk.basis),
+                     "basis_exp_sigma": point_to_jax(fp, pk.basis_exp_sigma)}
+                    for pk in pks],
+            "vk": {"g": point_to_jax(fp, vk.g),
+                   "g_sigma_neg": point_to_jax(fp, vk.g_sigma_neg)}}

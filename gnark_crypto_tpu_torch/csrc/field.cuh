@@ -19,9 +19,6 @@
 // their kernels spilled up to twice as much and ran up to 2.2x slower,
 // while mont_mul.cu and vm.cu, one product in a kernel or a loop body,
 // ran 1.4-1.5x faster unrolled (PERF.md).
-//
-// Kernels built at 8 words only (the NTT) use the names at the end:
-// W, Elem, FieldConst, field_const and load_elem without a width.
 #pragma once
 
 #include <cstdint>
@@ -389,19 +386,6 @@ inline int for_width(int n_words, F&& f) {
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// The 8-word instantiation, for the kernels built at 8 words only.
-constexpr int W = 8;  // words per element
-using Elem = ElemT<W>;
-using FieldConst = FieldConstT<W>;
-
-inline FieldConst field_const(const uint32_t* words) {
-  return field_const<W>(words);
-}
-
-__device__ __forceinline__ Elem load_elem(const uint32_t* p) {
-  return load_elem<W>(p);
 }
 
 }  // namespace gct

@@ -2,7 +2,8 @@
 // row of S = 2^log_s elements in shared memory, with one pass over device
 // memory for the row (read once, written once).
 //
-// Row r, element j lives at x[(r * row_stride + j * elem_stride) * 8]:
+// Elements are W words (8, 10 or 12: bn254 Fr, bw6-633 Fr, bw6-761 Fr).
+// Row r, element j lives at x[(r * row_stride + j * elem_stride) * W]:
 // contiguous rows (elem_stride 1) serve the fused tail of the radix-2
 // transform and the row step of the four-step transform; strided rows
 // (elem_stride = number of rows) serve the four-step column step without a
@@ -21,20 +22,41 @@
 
 namespace gct {
 
-constexpr int kBlockThreads = 512;
-constexpr int kMaxLogS = 12;  // 2^12 * 32 B = 128 KB of shared memory
+// Host: f(std::integral_constant<int, W>{}) for the NTT widths 8, 10 and
+// 12, the Fr of every NTT field; any other width (for_width's 20 and 24
+// included: no NTT field has them) returns cudaErrorInvalidValue, and the
+// wrapper has raised before that.
+template <class F>
+inline int for_ntt_width(int n_words, F&& f) {
+  switch (n_words) {
+    case 8:
+      return f(std::integral_constant<int, 8>{});
+    case 10:
+      return f(std::integral_constant<int, 10>{});
+    case 12:
+      return f(std::integral_constant<int, 12>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
-template <bool DIT>
+constexpr int kBlockThreads = 512;
+// 4W << 12 bytes of shared memory: 128 KB at 8 words, 160 KB at 10 and
+// 192 KB at 12, all within the H100's 227 KB for one block
+constexpr int kMaxLogS = 12;
+
+template <int W, bool DIT>
 __global__ void __launch_bounds__(kBlockThreads)
 ntt_block_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                  const uint32_t* __restrict__ tw, int tw_shift, int log_s,
                  long long row_stride, long long elem_stride,
-                 const uint32_t* __restrict__ twist, FieldConst fc) {
+                 const uint32_t* __restrict__ twist, FieldConstT<W> fc) {
+  using Elem = ElemT<W>;
   extern __shared__ uint32_t sm[];
   const int S = 1 << log_s;
   const long long row = (long long)blockIdx.x * row_stride;
   for (int j = threadIdx.x; j < S; j += blockDim.x) {
-    const Elem e = load_elem(x + (row + (long long)j * elem_stride) * W);
+    const Elem e = load_elem<W>(x + (row + (long long)j * elem_stride) * W);
 #pragma unroll
     for (int w = 0; w < W; ++w) sm[w * S + j] = e.w[w];
   }
@@ -53,7 +75,8 @@ ntt_block_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
         u.w[w] = sm[w * S + lo];
         v.w[w] = sm[w * S + hi];
       }
-      const Elem t = load_elem(tw + ((long long)off << (s + tw_shift)) * W);
+      const Elem t =
+          load_elem<W>(tw + ((long long)off << (s + tw_shift)) * W);
       Elem o0, o1;
       if (DIT) {
         v = mont_mul(v, t, fc);
@@ -76,31 +99,37 @@ ntt_block_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
     Elem e;
 #pragma unroll
     for (int w = 0; w < W; ++w) e.w[w] = sm[w * S + j];
-    if (twist != nullptr) e = mont_mul(e, load_elem(twist + pos * W), fc);
+    if (twist != nullptr) e = mont_mul(e, load_elem<W>(twist + pos * W), fc);
     store_elem(y + pos * W, e);
   }
 }
 
-// Launches `rows` blocks on `stream`; returns the CUDA error code (0 = ok).
-inline int launch_ntt_block(const void* x, void* y, const void* tw,
+// Launches `rows` blocks on `stream` at the width n_words (8, 10 or 12);
+// returns the CUDA error code (0 = ok).
+inline int launch_ntt_block(int n_words, const void* x, void* y, const void* tw,
                             int tw_shift, int log_s, long long rows,
                             long long row_stride, long long elem_stride,
                             const void* twist, int dit,
                             const uint32_t* field_words, void* stream) {
   if (log_s < 0 || log_s > kMaxLogS) return (int)cudaErrorInvalidValue;
-  if (rows <= 0) return 0;
-  const size_t smem = (size_t)W * sizeof(uint32_t) << log_s;
-  const int half = (1 << log_s) >> 1;
-  const int threads = half < 1 ? 1 : (half < kBlockThreads ? half : kBlockThreads);
-  const FieldConst fc = field_const(field_words);
-  auto kernel = dit ? ntt_block_kernel<true> : ntt_block_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, tw_shift, log_s,
-      row_stride, elem_stride, (const uint32_t*)twist, fc);
-  return (int)cudaGetLastError();
+  return for_ntt_width(n_words, [&](auto width) {
+    constexpr int W = decltype(width)::value;
+    if (rows <= 0) return 0;
+    const size_t smem = (size_t)W * sizeof(uint32_t) << log_s;
+    const int half = (1 << log_s) >> 1;
+    const int threads =
+        half < 1 ? 1 : (half < kBlockThreads ? half : kBlockThreads);
+    auto kernel =
+        dit ? ntt_block_kernel<W, true> : ntt_block_kernel<W, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, tw_shift,
+        log_s, row_stride, elem_stride, (const uint32_t*)twist,
+        field_const<W>(field_words));
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace gct

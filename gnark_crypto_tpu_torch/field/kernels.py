@@ -121,14 +121,15 @@ def check_width(spec: FieldSpec, what: str, widths: tuple[int, ...]) -> None:
     ``reduce_once`` (``csrc/field.cuh``)."""
     W = spec.n_words
     if W not in widths or spec.modulus >> (32 * W - 1):
-        # the ROADMAP's widths still to build: (b) 10 and 12 words in the
-        # NTT, (d) 8 words with q >= 2^255
-        todo = "(d)" if W == 8 else "(b)"
+        # the ROADMAP's width still to build: (d), 8 words with q >= 2^255
+        # (secp256k1/r1)
+        todo = (" (ROADMAP.md queue 2, width (d))"
+                if spec.modulus >> (32 * W - 1) else "")
         raise NotImplementedError(
             f"{what}: {spec.name} ({W} words, {spec.modulus.bit_length()} "
             f"bits) is not ported to its CUDA kernel, which takes "
             f"{' or '.join(map(str, widths))}-word fields with "
-            f"q < 2^(32W-1) (ROADMAP.md queue 2, widths {todo})")
+            f"q < 2^(32W-1){todo}")
 
 
 def load_align(n_words: int) -> int:

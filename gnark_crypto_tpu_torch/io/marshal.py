@@ -13,7 +13,7 @@ order of Y (element.go:277 LexicographicallyLargest: v > (q-1)/2, decided
 on the highest nonzero coefficient), which needs no square root. Encoding
 is host work on canonical integers. Decoding (``from_bytes``) needs the
 Fp2 square root and the subgroup checks and is not ported yet (ROADMAP.md
-queue 1, item 11).
+queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -94,7 +94,7 @@ class PointCodec:
     def from_bytes(self, bufs, subgroup_check: bool = True) -> Affine:
         raise NotImplementedError(
             "PointCodec.from_bytes needs the Fp2 square root and the "
-            "subgroup checks, not ported yet (ROADMAP.md queue 1, item 11)")
+            "subgroup checks, not ported yet (ROADMAP.md queue 1, item 3)")
 
 
 def _is_zero_coord(v) -> bool:

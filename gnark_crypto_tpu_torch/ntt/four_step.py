@@ -32,14 +32,16 @@ import torch
 
 from gnark_crypto_tpu_torch.field import mont
 from gnark_crypto_tpu_torch.field.kernels import (
-    check_kernel_args, mont_mul_plain)
+    check_kernel_args, count_launch, mont_mul_plain)
 from gnark_crypto_tpu_torch.ntt import radix2
 from gnark_crypto_tpu_torch.ntt.domain import bitrev_perm, exp_table
 from gnark_crypto_tpu_torch.specs.field import FieldSpec
 from gnark_crypto_tpu_torch.utils import build
 
 MIN_LOG = 14   # S1, S2 >= 128, as the TPU path
-MAX_SUB_LOG = 12  # 2^12 elements = 128 KB of shared memory per sub-NTT
+# 2^12 elements a sub-NTT: 4W << 12 bytes of shared memory (128, 160 and
+# 192 KB at 8, 10 and 12 words, within the H100's 227 KB a block)
+MAX_SUB_LOG = 12
 
 
 def supported(domain, decimation: str, inverse: bool) -> bool:
@@ -134,20 +136,23 @@ def sub_ntt(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor, log_s: int,
             or tw.shape[0] < max(1, (1 << log_s) >> 1)
             or (twist is not None and twist.shape[0] != n)):
         raise ValueError(f"sub_ntt: bad shapes n={n}, 2^{log_s} x {other}")
+    radix2.block_geometry(spec.n_words, log_s)
     out = torch.empty_like(x)
     fn = build.function("ntt_four_step", "gct_ntt_four_step", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p])
-    sub_ntt.launches += 1
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    count_launch(sub_ntt, spec)
     build.check(fn(x.data_ptr(), out.data_ptr(), tw.data_ptr(), log_s, other,
                    int(columns), None if twist is None else twist.data_ptr(),
-                   int(dit), build.field_words(spec), build.stream_ptr(x)),
+                   int(dit), spec.n_words, build.field_words(spec),
+                   build.stream_ptr(x)),
                 "ntt_four_step launch")
     return out
 
 
 sub_ntt.launches = 0
+sub_ntt.launches_by_width = {}
 
 
 def run(domain, a: torch.Tensor, decimation: str, inverse: bool

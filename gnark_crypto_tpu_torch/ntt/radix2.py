@@ -30,17 +30,24 @@ import torch
 
 from gnark_crypto_tpu_torch.field import mont
 from gnark_crypto_tpu_torch.field.kernels import (
-    check_kernel_args, mont_mul_plain)
+    check_kernel_args, count_launch, mont_mul_plain)
 from gnark_crypto_tpu_torch.specs.field import FieldSpec
 from gnark_crypto_tpu_torch.utils import build
 
 DIF = "DIF"
 DIT = "DIT"
-TILE_LOG = 10  # 2^10 elements = 32 KB of shared memory per block
-# the widths the NTT kernels are built for: csrc/ntt_block.cuh's
-# shared-memory tiles hold 8-word elements (bw6 Fr at 12 and 10 words is
-# not ported to them)
-WIDTHS = (8,)
+# 2^10 elements a block: 4W KB of shared memory (32, 40 and 48 KB at 8,
+# 10 and 12 words)
+TILE_LOG = 10
+# the widths the NTT kernels are built for (csrc/ntt_block.cuh
+# ``for_ntt_width``): bn254 Fr at 8 words, bw6-633 Fr at 10 and bw6-761 Fr
+# at 12
+WIDTHS = (8, 10, 12)
+# the H100's shared memory for one block (227 KB), which a fused tile or a
+# four-step sub-NTT must fit
+SMEM_PER_BLOCK = 227 * 1024
+BLOCK_THREADS = 512  # csrc/ntt_block.cuh kBlockThreads
+MAX_LOG_S = 12       # csrc/ntt_block.cuh kMaxLogS
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +111,21 @@ def run_plain(domain, a: torch.Tensor, decimation: str, inverse: bool
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def block_geometry(n_words: int, log_s: int) -> tuple[int, int]:
+    """(threads, shared-memory bytes) of one ``ntt_block_kernel`` block
+    over rows of 2^log_s elements of n_words words, as
+    ``csrc/ntt_block.cuh`` ``launch_ntt_block`` sets them: the row
+    word-major in 4W << log_s bytes, one thread a butterfly up to 512."""
+    if not 0 <= log_s <= MAX_LOG_S:
+        raise ValueError(f"a block row holds at most 2^{MAX_LOG_S} "
+                         f"elements, not 2^{log_s}")
+    smem = 4 * n_words << log_s
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"2^{log_s} elements of {n_words} words need "
+                         f"{smem} bytes of shared memory")
+    return max(1, min((1 << log_s) >> 1, BLOCK_THREADS)), smem
+
+
 def stage(spec: FieldSpec, x: torch.Tensor, tw0: torch.Tensor, k: int,
           s: int, dit: bool) -> torch.Tensor:
     """One butterfly stage of a size-2^k transform (``ntt_stage_kernel``)."""
@@ -116,10 +138,12 @@ def stage(spec: FieldSpec, x: torch.Tensor, tw0: torch.Tensor, k: int,
     out = torch.empty_like(x)
     fn = build.function("ntt_radix2", "gct_ntt_radix2_stage", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    stage.launches += 1
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p])
+    count_launch(stage, spec)
     build.check(fn(x.data_ptr(), out.data_ptr(), tw0.data_ptr(), k, s,
-                   int(dit), build.field_words(spec), build.stream_ptr(x)),
+                   int(dit), spec.n_words, build.field_words(spec),
+                   build.stream_ptr(x)),
                 "ntt_radix2 stage launch")
     return out
 
@@ -136,21 +160,23 @@ def block(spec: FieldSpec, x: torch.Tensor, tw0: torch.Tensor,
                          f"or 2^{log_s} exceeds the tile")
     if tw0.shape[0] < max(1, (1 << (log_s + tw_shift)) >> 1):
         raise ValueError("block: twiddle table too short")
+    block_geometry(spec.n_words, log_s)
     out = torch.empty_like(x)
     fn = build.function("ntt_radix2", "gct_ntt_radix2_block", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p])
-    block.launches += 1
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p])
+    count_launch(block, spec)
     build.check(fn(x.data_ptr(), out.data_ptr(), tw0.data_ptr(), tw_shift,
-                   log_s, n >> log_s, int(dit), build.field_words(spec),
-                   build.stream_ptr(x)),
+                   log_s, n >> log_s, int(dit), spec.n_words,
+                   build.field_words(spec), build.stream_ptr(x)),
                 "ntt_radix2 block launch")
     return out
 
 
-stage.launches = 0
-block.launches = 0
+for _w in (stage, block):
+    _w.launches = 0
+    _w.launches_by_width = {}
 
 
 def run(domain, a: torch.Tensor, decimation: str, inverse: bool

@@ -19,7 +19,7 @@ and quotients are affine G1 batches of one point, as in the JAX package.
 Any pairing curve works: bn254, bls12-381/377, bls24-315/317 and
 bw6-761/633, on the card or on the CPU's plain versions.
 
-Not ported yet (ROADMAP.md queue 1, item 6): ``VerifyingKey.with_lines``
+Not ported yet (ROADMAP.md queue 1, item 3): ``VerifyingKey.with_lines``
 and the fixed-Q pairing of ``pairing/lines.py``; ``new_srs`` computes
 [alpha]G2 with the G2 group law's ladder, not the GLS ladder of
 ``curve/glv.py``.
@@ -45,7 +45,7 @@ from gnark_crypto_tpu_torch.utils.scans import exp_table, prefix_sum
 
 _NO_LINES = ("precomputed pairing lines: the fixed-Q pairing of "
              "pairing/lines.py is not ported yet (ROADMAP.md queue 1, "
-             "item 6)")
+             "item 3)")
 
 
 @dataclasses.dataclass

@@ -1,8 +1,10 @@
 """Engine-generic parallel scans on word tensors (log-stride).
 
-Counterpart of ``gnark_crypto_tpu/utils/scans.py``: the same two scans
-over any engine of the field protocol (``field/api.py``, or an extension
-engine), run where their operands live.
+Counterpart of ``gnark_crypto_tpu/utils/scans.py``: the same scans over
+any engine of the field protocol (``field/api.py``, or an extension
+engine), run where their operands live, and the log-stride prefix product
+that the reference writes inline in ``protocols/iop.py`` and
+``protocols/permutation.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,26 @@ def prefix_sum(eng, x: torch.Tensor) -> torch.Tensor:
         x = torch.cat([x[:d], eng.add(x[d:], x[:-d])], dim=0)
         d *= 2
     return x
+
+
+def prefix_product(eng, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix product along the leading element axis (Montgomery;
+    Hillis-Steele: log2(N) batched products)."""
+    n = eng.eshape(x)[0]
+    d = 1
+    while d < n:
+        x = torch.cat([x[:d], eng.mul(x[d:], x[:-d])], dim=0)
+        d *= 2
+    return x
+
+
+def exclusive_prefix_product(eng, x: torch.Tensor) -> torch.Tensor:
+    """[1, x_0, x_0 x_1, ..., x_0 ... x_(N-2)] (Montgomery): the grand
+    product accumulator Z of the copy-constraint and permutation
+    arguments, Z_0 = 1."""
+    z = prefix_product(eng, x)
+    one = eng.ones((1,), device=x.device)
+    return torch.cat([one, z[:-1]], dim=0)
 
 
 def exp_table(eng, w: torch.Tensor, n: int) -> torch.Tensor:

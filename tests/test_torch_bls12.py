@@ -91,7 +91,7 @@ WRAPPER_WIDTHS = {
 
 def test_wrapper_widths():
     assert kernels.FIELD_WIDTHS == (8, 10, 12, 20, 24)
-    assert radix2.WIDTHS == (8,) and point_add2.WIDTHS == (8, 12)
+    assert radix2.WIDTHS == (8, 10, 12) and point_add2.WIDTHS == (8, 12)
     assert point_add2.PAIRS == ((8, -1), (12, -1), (12, -5))
 
 
@@ -106,11 +106,11 @@ def test_width_check_admits(name, words):
         # Fp4, bw6's over Fp
         with pytest.raises(NotImplementedError):
             kernels.check_width(spec, "jac_add2", point_add2.WIDTHS)
-    if words == 8:
+    if words in radix2.WIDTHS:  # bn254 Fr, bw6-633 Fr, bw6-761 Fr
         kernels.check_width(spec, "ntt_radix2 stage", radix2.WIDTHS)
-    else:  # wider fields never reach an 8-word NTT kernel
+    else:  # no NTT field has 20 or 24 words
         with pytest.raises(NotImplementedError):
-            kernels.check_width(spec, "8-word kernel", radix2.WIDTHS)
+            kernels.check_width(spec, "NTT kernel", radix2.WIDTHS)
 
 
 @pytest.mark.parametrize("name,words", REFUSED_EVERYWHERE)

@@ -228,6 +228,70 @@ def test_wrappers_count_launches_and_reject(cuda):
         four_step.sub_ntt(SPEC, a, tw1, 13, 2, True, False)
 
 
+# the NTT fields at 10 and 12 words: bw6-633 Fr and bw6-761 Fr
+NTT_WIDE = [fs.BW6_633_FR, fs.BW6_761_FR]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 12, 14, 15])
+@pytest.mark.parametrize("spec", NTT_WIDE, ids=lambda s: s.name)
+def test_ntt_kernels_match_plain_10_12_words(cuda, spec, k):
+    """Every (decimation, direction, coset) form at 10 and 12 words: the
+    card's steps equal the CPU's (the plain versions) up to 2^12, and the
+    kernels' transform equals the plain radix-2 stages."""
+    n = 1 << k
+    q = spec.modulus
+    dom = Domain(spec, n, device=cuda)
+    cpu_dom = Domain(spec, n, device="cpu") if k <= 12 else None
+    rng = random.Random(k)
+    a = mont.from_int(spec, ([0, 1, q - 1] + [rng.randrange(q)
+                                              for _ in range(n)])[:n],
+                      device=cuda)
+    W = spec.n_words
+    wrappers = (radix2.stage, radix2.block, four_step.sub_ntt)
+    before = [w.launches_by_width.get(W, 0) for w in wrappers]
+    for dec, inverse in PAIRS:
+        f = fft.fft_inverse if inverse else fft.fft
+        for coset in (False, True):
+            got = f(dom, a, dec, coset)
+            if cpu_dom is not None:
+                assert torch.equal(got.cpu(), f(cpu_dom, a.cpu(), dec, coset))
+        want = radix2.run_plain(dom, a, dec, inverse)
+        if inverse and four_step.supported(dom, dec, inverse):
+            want = mont.mul(spec, want, dom.cardinality_inv)
+        assert torch.equal(fft._run(dom, a, dec, inverse)[0], want)
+    after = [w.launches_by_width.get(W, 0) for w in wrappers]
+    assert after[1] > before[1]  # every size runs a fused block
+    if k >= four_step.MIN_LOG:
+        assert after[2] > before[2]
+    if k > radix2.TILE_LOG:
+        assert after[0] > before[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("columns", [True, False])
+@pytest.mark.parametrize("dit", [False, True])
+@pytest.mark.parametrize("spec", NTT_WIDE, ids=lambda s: s.name)
+def test_sub_ntt_2e12_tile_matches_plain_10_12_words(cuda, spec, dit,
+                                                     columns):
+    """The largest shared-memory tile: 2^12-element sub-NTTs (160 KB at 10
+    words, 192 KB at 12), with a twist, over the rows or the columns of a
+    2^14-element array."""
+    q = spec.modulus
+    rng = random.Random(12 + spec.n_words)
+    n, log_s = 1 << 14, 12
+    other = n >> log_s
+    a = mont.from_int(spec, [rng.randrange(q) for _ in range(n)],
+                      device=cuda)
+    twist = mont.from_int(spec, [rng.randrange(q) for _ in range(n)],
+                          device=cuda)
+    tw = Domain(spec, 1 << log_s, with_coset=False, device=cuda).twiddles0
+    for tws in (None, twist):
+        args = (spec, a, tw, log_s, other, columns, dit, tws)
+        assert torch.equal(four_step.sub_ntt(*args),
+                           four_step.sub_ntt_plain(*args))
+
+
 # -- exp_const and the point kernels -----------------------------------------
 
 # a = 0 and a = 1 at 8 words; the bls24 G1 curves at 10, the bls12 at 12,
@@ -623,9 +687,9 @@ def test_bls12_pair_on_card_equals_golden(cuda, name):
 def test_unported_widths_raise_before_any_kernel(cuda):
     """On the card, the Fp2 kernels called with a (words, nr) pair they
     were not built for (bn254's Fp with u^2 = -5, bls12-381's with -7, a
-    10-, 20- or 24-word Fp), the bw6-761 and bw6-633 Fr NTTs and the
-    secp256k1/r1 products raise NotImplementedError and launch no kernel
-    on the way."""
+    10-, 20- or 24-word Fp), the NTT kernels called with a 20- or 24-word
+    field (no NTT field has that width) and the secp256k1/r1 products
+    raise NotImplementedError and launch no kernel on the way."""
     from gnark_crypto_tpu_torch.field import point_add2
 
     eight = (radix2.stage, radix2.block, four_step.sub_ntt,
@@ -645,12 +709,15 @@ def test_unported_widths_raise_before_any_kernel(cuda):
                          (point_add2.jac_fold_windows2, (x,) * 3 + (3,))):
             with pytest.raises(NotImplementedError):
                 fn(spec, nr, *args)
-    for fr in (fs.BW6_761_FR, fs.BW6_633_FR):
-        dom = Domain(fr, 1 << 14, device=cuda)
-        a = mont.from_int(fr, list(range(1 << 14)), device=cuda)
-        for dec in ("DIF", "DIT"):
-            with pytest.raises(NotImplementedError):
-                fft.fft(dom, a, dec)
+    for fp in (fs.BW6_761_FP, fs.BW6_633_FP):
+        a = mont.from_int(fp, list(range(1 << 4)), device=cuda)
+        tw = a[:8]
+        with pytest.raises(NotImplementedError):
+            radix2.stage(fp, a, tw, 4, 0, False)
+        with pytest.raises(NotImplementedError):
+            radix2.block(fp, a, tw, 0, 4, True)
+        with pytest.raises(NotImplementedError):
+            four_step.sub_ntt(fp, a, tw, 2, 4, True, False)
     assert [w.launches for w in eight] == before
     field = (kernels.mont_mul, exp.exp_const)
     before = [w.launches for w in field]
