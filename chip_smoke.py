@@ -56,10 +56,10 @@ the same card, bit for bit (the field is exact: the tolerance is 0):
   ops, its products on the 10-word ``mont_mul``): the G1 MSM at 2^12,
   2^16 and 2^20 with ``batch_scalar_mul`` at 2^16; the pairing as for
   bls12 at 2048 pairs, tampered, at batch 2 and against the golden bytes,
-  Q_i = [b_i]G2 by the E4 ``scalar_mul`` on the card (b below 2^32: the
-  E4 ladder costs ~0.15 s a bit; sampled lanes, b = 2, 3, 2^32 - 1, 1 and
+  Q_i = [b_i]G2 by the E4 ``scalar_mul`` on the card (b below 2^16: the
+  E4 ladder costs ~0.15 s a bit; sampled lanes, b = 2, 3, 2^16 - 1, 1 and
   7 among them, against a Python-int Fp4 ladder); KZG as for bn254 (alpha
-  below 2^32, for the same ladder), bls24-315
+  below 2^16, for the same ladder), bls24-315
   (the inner curve of gnark's 2-chain with bw6-633) at 2^20 and bls24-317
   at 2^16;
 * bw6-761 and bw6-633 (24- and 20-word Fp, the 24- and 20-word
@@ -181,7 +181,13 @@ W20, W24 = "_w20", "_w24"
 # the NTT kernels, built at 8, 10 and 12 words (bn254, bw6-633 and bw6-761
 # Fr); their 10- and 12-word rows are named with W10 and W12
 NTT_KERNELS = ("ntt_radix2_stage", "ntt_radix2_block", "ntt_four_step")
-SUFFIX = {8: "", 10: W10, 12: W12, 20: W20, 24: W24}
+# the kernels that take the 256-bit 8-word fields (secp256k1/r1 Fp and Fr);
+# their launches there count under the width key "8full"
+# (field/kernels.py width_key) and are rows of their own, named with W8F
+FULL_KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double",
+                "affine_prep", "affine_finish", "jac_fold_windows")
+W8F = "_w8full"
+SUFFIX = {8: "", 10: W10, 12: W12, 20: W20, 24: W24, "8full": W8F}
 
 
 def mads_per_product(words: int) -> int:
@@ -210,6 +216,18 @@ def dbl2_design(words: int, nr: int) -> str:
 
 FAILURES: list[str] = []
 CHECKS: list[str] = []
+
+
+def chain_products(e: int) -> int:
+    """The fewest products that any addition chain for x^e takes, by
+    Schoenhage's lower bound l(e) >= log2(e) + log2(v(e)) - 2.13, v(e) the
+    set bits (and l(e) >= log2(e)): exp_const's operations bound. A
+    secp256k1 q - 2 gives 262, its known chain 270, the kernel's own
+    right-to-left ladder 503."""
+    import math
+
+    return max(math.ceil(math.log2(e)), math.ceil(
+        math.log2(e) + math.log2(bin(e).count("1")) - 2.13))
 
 
 def check(ok: bool, what: str) -> None:
@@ -317,6 +335,19 @@ def width(args) -> int:
     return next(a.shape[0] for a in args if hasattr(a, "shape"))
 
 
+def plain_on_host(fn, args):
+    """fn(*args) on CPU copies of the tensor arguments, its tensor outputs
+    moved back to the arguments' device: a 1-lane plain fold there runs its
+    products on Python integers (``field/kernels.py`` ``SMALL_BATCH``),
+    seconds faster than its CIOS on the card."""
+    import torch
+
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    outs = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                for a in args))
+    return tuple(o.to(dev) for o in outs)
+
+
 def finite_pairs(args) -> int:
     """Lanes of a ``jac_add`` call whose operands are both finite (Z != 0):
     the lanes that run the add's formula, not its early return."""
@@ -331,8 +362,8 @@ class Recorder:
     ``on``, keeps the arguments of the call of the highest ``score`` (by
     default the widest: the first dimension of the first tensor argument),
     or of every call with ``keep_all``; with ``words``, only of calls on a
-    field of that many words (the wrapper's first argument, a field
-    spec)."""
+    field of that width key (the wrapper's first argument, a field spec:
+    ``kernels.width_key``, its words or "8full")."""
 
     def __init__(self, module, name: str, keep_all: bool = False,
                  words: int | None = None, score=width):
@@ -343,8 +374,10 @@ class Recorder:
         self.args, self.calls = None, []
 
     def __call__(self, *args):
+        from gnark_crypto_tpu_torch.field.kernels import width_key
+
         if self.on and (self.words is None
-                        or args[0].n_words == self.words):
+                        or width_key(args[0]) == self.words):
             if self.keep_all:
                 self.calls.append(args)
             else:
@@ -377,10 +410,11 @@ class Recorder:
 
 class MsmSlice:
     """A G1 MSM path: inputs, main path, checks and timings. bn254 (8
-    words) with a stark_g1 MSM beside it (a != 0), or a bls24 curve (10-word
-    Fp) or a bls12 curve (12-word Fp), whose kernel rows are the 10- or
-    12-word instantiations (``W10``, ``W12``) and which also records and
-    checks ``mont_mul``."""
+    words) with a stark_g1 MSM beside it (a != 0), or a curve of another
+    width (bls24: 10-word Fp, bls12: 12, bw6: 20 and 24, secp256k1/r1: the
+    256-bit 8-word Fp), whose kernel rows are the instantiations at that
+    width (``W10``, ``W12``, ``W20``, ``W24``, ``W8F``) and which also
+    records and checks ``mont_mul``."""
 
     KERNELS = ("exp_const", "jac_add", "jac_double", "affine_prep",
                "affine_finish", "jac_fold_windows")
@@ -403,29 +437,30 @@ class MsmSlice:
         self.spec = cs.get_curve(name)
         self.curve = curve_ops(self.spec)
         self.W = self.spec.fp.n_words
-        self.suffix = SUFFIX[self.W]
-        self.tag = "" if self.W == 8 else f"{self.spec.name} "
+        self.key = kernels.width_key(self.spec.fp)
+        self.suffix = SUFFIX[self.key]
+        self.tag = f"{self.spec.name} " if self.suffix else ""
         self.stark = cs.get_curve("stark_g1") if stark_log else None
-        kernel_names = self.KERNELS + (("mont_mul",) if self.W != 8 else ())
+        kernel_names = self.KERNELS + (("mont_mul",) if self.suffix else ())
         self.kernels = tuple(self.kname(k) for k in kernel_names)
         self.wrappers = {"exp_const": field_exp.exp_const,
                          **{k: getattr(point_add, k) for k in self.KERNELS
                             if k != "exp_const"}}
-        self.recorders = [Recorder(field_exp, "exp_const", words=self.W),
+        self.recorders = [Recorder(field_exp, "exp_const", words=self.key),
                           Recorder(point_add, "jac_fold_windows",
                                    keep_all=True)]
-        self.recorders += [Recorder(point_add, k, words=self.W) for k in
+        self.recorders += [Recorder(point_add, k, words=self.key) for k in
                            ("affine_prep", "affine_finish")]
-        self.recorders.append(Recorder(point_add, "jac_add", words=self.W,
+        self.recorders.append(Recorder(point_add, "jac_add", words=self.key,
                                        score=finite_pairs))
         self.plain = {"exp_const": field_exp.exp_const_plain,
                       **{k: getattr(point_add, f"{k}_plain")
                          for k in self.KERNELS if k != "exp_const"}}
-        if self.W != 8:
+        if self.suffix:
             # mont.mul reaches the kernel through its own module's name
             self.wrappers["mont_mul"] = kernels.mont_mul
             self.plain["mont_mul"] = kernels.mont_mul_plain
-            self.recorders.append(Recorder(mont, "mont_mul", words=self.W))
+            self.recorders.append(Recorder(mont, "mont_mul", words=self.key))
         self.rec = {r.name: r for r in self.recorders}
         self.results, self.wall, self.peak = {}, {}, {}
         # points [i+1]G, i < 2^base_log, tiled to 2^k for k in sizes; the
@@ -541,13 +576,14 @@ class MsmSlice:
         # 2^8 random points against the Python-int oracle
         rng = random.Random(SEED + 8)
         p, r = self.spec.fp.modulus, self.spec.fr.modulus
+        a_p = self.spec.a % p
         g = (self.spec.gx, self.spec.gy)
-        pts = [oracle_mul(g, rng.randrange(1, 1 << 64), p, 0)
+        pts = [oracle_mul(g, rng.randrange(1, 1 << 64), p, a_p)
                for _ in range(256)]
         ks = [rng.randrange(r) for _ in range(256)]
         want = None
         for pt, k in zip(pts, ks):
-            want = oracle_add(want, oracle_mul(pt, k, p, 0), p, 0)
+            want = oracle_add(want, oracle_mul(pt, k, p, a_p), p, a_p)
         f = self.curve.fp
         P = Affine(f.from_int([t[0] for t in pts], device=self.dev),
                    f.from_int([t[1] for t in pts], device=self.dev))
@@ -562,7 +598,7 @@ class MsmSlice:
         kk = mont.to_int(self.spec.fr, self.s24[lanes], mont=False)
         got = self.affine_ints(self.curve, type(self.bsm)(
             *(c[lanes] for c in self.bsm)))
-        check(got == [oracle_mul(g, k, p, 0) for k in kk],
+        check(got == [oracle_mul(g, k, p, a_p) for k in kk],
               f"batch_scalar_mul {name} 2^{self.base_log}: 8 sampled lanes"
               " == Python ints")
 
@@ -630,7 +666,7 @@ class MsmSlice:
                     what += f", first {self.FOLD_WINDOWS} windows"
                 for i, (o, w) in enumerate(zip(
                         pa.jac_fold_windows(*args),
-                        pa.jac_fold_windows_plain(*args))):
+                        plain_on_host(pa.jac_fold_windows_plain, args))):
                     compare(self.kname("jac_fold_windows"), o, w,
                             f"{what}, output {i}")
         if self.stark is None:
@@ -680,12 +716,12 @@ class MsmSlice:
         out["jac_double"] = (c[0].shape[0] * 6 * ELEM_BYTES,
                              (7 if a == 0 else 10) * mm * c[0].shape[0])
         spec, x, e = self.kargs["exp_const"]
-        # right to left: the chain is the squares, nbits - 1 of them; the
-        # multiplies, popcount - 1, trail it
+        # the kernel's right-to-left chain is its squares, nbits - 1 of
+        # them, with popcount - 1 multiplies trailing; the bound counts the
+        # least chain any method could take
         self.exp_serial = e.bit_length() - 1
-        products = self.exp_serial + bin(e).count("1") - 1
         out["exp_const"] = (x.shape[0] * 2 * ELEM_BYTES,
-                            mm * products * x.shape[0])
+                            mm * chain_products(e) * x.shape[0])
         for tag, (spec, a, fx, fy, fz, c_) in self.fold_args.items():
             nwin = fx.shape[0]
             serial = c_ * (nwin - 1) * 7 + (nwin - 1) * 16
@@ -1180,18 +1216,18 @@ class Bls24PairingSlice(PairingSlice):
     the programs 2-6x a bls12 program's rows): 2048 pairs P_i = [a_i]G1 by
     batch_scalar_mul on the 10-word point kernels and Q_i = [b_i]G2 by the
     G2 scalar_mul over E4, composed of field ops (its products on the
-    10-word ``mont_mul``), with b = 2, 3 and 2^32 - 1 in the first lanes;
+    10-word ``mont_mul``), with b = 2, 3 and 2^16 - 1 in the first lanes;
     sampled Q_i are held against a Python-int Fp4 ladder. The E4 ladder
     costs ~0.15 s a bit on the card whatever the lanes, so the edge
     scalars ride in the path's one ladder, not in a ladder of their own,
-    and the G2 scalars are below 2^32: a 32-bit ladder, not a 253-bit one
+    and the G2 scalars are below 2^16: a 16-bit ladder, not a 253-bit one
     (the 2048 pairs and their check are the same; every bit is the same
     double and masked add)."""
 
     SUFFIX = W10
     KERNELS = ("vm_execute", "mont_mul", "exp_const", "jac_add",
                "jac_double")
-    G2_BOUND = 1 << 32
+    G2_BOUND = 1 << 16
 
     def __init__(self, dev, nprng, name: str, n: int = 2048):
         self.NAME = name
@@ -1556,8 +1592,8 @@ class KzgSlice:
         W = self.g1.spec.fp.n_words
         self.e4 = name.startswith("bls24")
         # alpha's bits are new_srs's [alpha]G2 ladder: over E4 (field ops,
-        # ~0.15 s a bit on the card) alpha is below 2^32
-        self.alpha_bound = 1 << 32 if self.e4 else self.r
+        # ~0.15 s a bit on the card) alpha is below 2^16
+        self.alpha_bound = 1 << 16 if self.e4 else self.r
         self.g2_fp = name.startswith("bw6")
         kernels = self.KERNELS
         if self.e4 or self.g2_fp:
@@ -2604,6 +2640,586 @@ class ToolkitSlice:
                     f"{label}"] = {"s": float(np.median(per)), "runs": per}
 
 
+# ---------------------------------------------------------------------------
+# the 256-bit 8-word fields and the signature stack (secp256k1/r1, ECDSA,
+# twisted Edwards and EdDSA over MiMC, the stark Pedersen hash)
+# ---------------------------------------------------------------------------
+
+FULL_FIELDS = ("secp256k1_fp", "secp256k1_fr", "secp256r1_fp",
+               "secp256r1_fr")
+
+
+def edge_values(q: int, bits: int) -> list[int]:
+    """0, 1, 2, q-1, q-2, q-3, (q-1)/2, (q+1)/2, 2^(bits-1), 2^(bits-1) - 1
+    and 2^bits - 1 reduced mod q, and q - 2^32: the operands at the carries
+    of a field that fills all its bits."""
+    return [0, 1, 2, q - 1, q - 2, q - 3, (q - 1) // 2, (q + 1) // 2,
+            (1 << (bits - 1)) % q, ((1 << (bits - 1)) - 1) % q,
+            ((1 << bits) - 1) % q, q - (1 << 32)]
+
+
+def host_wall(torch, fn):
+    """(fn(), seconds) on the host clock, synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+class FullFieldSlice:
+    """``mont_mul`` and ``exp_const`` at the full 256-bit width on
+    secp256k1 and secp256r1 Fp and Fr: ``mont.mul`` over 2^20 lanes with
+    every pair of the edge operands in the first lanes, and ``mont.inverse``
+    (``exp_const`` with e = q - 2) over 128 lanes with the edge values
+    first; each held bit for bit against its plain version and on the edge
+    lanes and a sample against Python integers."""
+
+    KERNELS = ("mont_mul" + W8F, "exp_const" + W8F)
+
+    def __init__(self, dev, nprng, log_n: int = 20):
+        import torch
+
+        from gnark_crypto_tpu_torch.specs import field as fs
+
+        self.torch, self.dev, self.nprng = torch, dev, nprng
+        self.specs = [fs.get_field(n) for n in FULL_FIELDS]
+        self.n = 1 << log_n
+
+    def operands(self, spec, n: int):
+        import numpy as np
+
+        from gnark_crypto_tpu_torch.field import mont
+
+        edge = edge_values(spec.modulus, 256)
+        a = [u for u in edge for _ in edge]
+        b = [v for _ in edge for v in edge]
+        w = self.nprng.integers(0, 1 << 32, size=(2, n - len(a), 8),
+                                dtype=np.uint32)
+        w[..., -1] %= spec.q_words[-1]
+        rnd = self.torch.from_numpy(w.view(np.int32)).to(self.dev)
+        return (self.torch.cat([mont.from_int(spec, a, device=self.dev),
+                                rnd[0]]),
+                self.torch.cat([mont.from_int(spec, b, device=self.dev),
+                                rnd[1]]))
+
+    def main_path(self):
+        from gnark_crypto_tpu_torch.field import mont
+
+        t0 = time.perf_counter()
+        self.runs = {}
+        for spec in self.specs:
+            x, y = self.operands(spec, self.n)
+            edge = edge_values(spec.modulus, 256)
+            e = mont.from_int(spec, edge + [0] * (128 - len(edge)),
+                              device=self.dev)
+            e[len(edge):] = x[-(128 - len(edge)):]
+            self.runs[spec.name] = (x, y, mont.mul(spec, x, y), e,
+                                    mont.inverse(spec, e))
+        self.torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def checks(self, compare, check):
+        from gnark_crypto_tpu_torch.field import exp, kernels, mont
+
+        rng = random.Random(SEED + 255)
+        for spec in self.specs:
+            x, y, xy, e, inv = self.runs[spec.name]
+            q = spec.modulus
+            compare("mont_mul" + W8F, xy, kernels.mont_mul_plain(spec, x, y),
+                    f"{spec.name} 2^{self.n.bit_length() - 1} lanes, edge "
+                    "pairs first")
+            idx = list(range(144)) + rng.sample(range(144, self.n), 32)
+            xs, ys, ps = (mont.to_int(spec, t[idx]) for t in (x, y, xy))
+            check(ps == [u * v % q for u, v in zip(xs, ys)],
+                  f"mont_mul {spec.name}: 144 edge pairs and 32 samples == "
+                  "Python-int products")
+            compare("exp_const" + W8F, inv,
+                    exp.exp_const_plain(spec, e, q - 2),
+                    f"{spec.name} 128 lanes, e = q - 2, edge values first")
+            es = mont.to_int(spec, e)
+            check(mont.to_int(spec, inv) == [pow(v, q - 2, q) for v in es],
+                  f"exp_const {spec.name}: 128 lanes == Python-int "
+                  "inverses (0 -> 0)")
+
+    def timings(self, cuda_ms, timings, kernel_rows):
+        from gnark_crypto_tpu_torch.field import exp, kernels
+
+        mm = mads_per_product(8)
+        for spec in self.specs:
+            x, y, _, e, _ = self.runs[spec.name]
+            n = x.shape[0]
+            b_ms, b_by = bound(3 * 32 * n, mm * n)
+            timings[f"mont_mul {spec.name} 2^{n.bit_length() - 1}"] = {
+                "ms": cuda_ms(lambda: kernels.mont_mul(spec, x, y), reps=5),
+                "bound_ms": b_ms, "bound_by": b_by}
+            q = spec.modulus
+            serial = (q - 2).bit_length() - 1
+            b_ms, b_by = bound(2 * 32 * 128,
+                               mm * chain_products(q - 2) * 128)
+            ms = cuda_ms(lambda: exp.exp_const(spec, e, q - 2), reps=5)
+            timings[f"exp_const {spec.name} 128 lanes e=q-2"] = {
+                "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                "serial_products": serial,
+                "us_per_serial_product": ms * 1e3 / serial}
+
+
+def host_nonce(order: int, d: int, h: int) -> int:
+    """The deterministic HMAC-SHA256 nonce of both packages' ECDSA (RFC 6979
+    flavour), on the host."""
+    import hashlib
+    import hmac
+
+    nb = (order.bit_length() + 7) // 8
+    data = d.to_bytes(nb, "big") + h.to_bytes(nb, "big")
+    k, v = b"\x00" * 32, b"\x01" * 32
+    k = hmac.new(k, v + b"\x00" + data, hashlib.sha256).digest()
+    v = hmac.new(k, v, hashlib.sha256).digest()
+    k = hmac.new(k, v + b"\x01" + data, hashlib.sha256).digest()
+    v = hmac.new(k, v, hashlib.sha256).digest()
+    while True:
+        t = b""
+        while len(t) < nb:
+            v = hmac.new(k, v, hashlib.sha256).digest()
+            t += v
+        cand = int.from_bytes(t[:nb], "big") % order
+        if cand:
+            return cand
+
+
+def host_ecdsa(spec, seed: bytes, msg: bytes):
+    """(d, public key, v, r, s) on Python integers: the key of ``seed`` and
+    its low-s recoverable signature of ``msg`` under SHA-256 (the
+    packages' key derivation, nonce rule and HashToInt truncation)."""
+    import hashlib
+
+    n, p, a = spec.fr.modulus, spec.fp.modulus, spec.a % spec.fp.modulus
+    g = (spec.gx % p, spec.gy % p)
+    d = int.from_bytes(hashlib.sha512(b"ecdsa-key" + seed).digest(),
+                       "big") % n or 1
+    digest = hashlib.sha256(msg).digest()[:(n.bit_length() + 7) // 8]
+    h = int.from_bytes(digest, "big")
+    if len(digest) * 8 > n.bit_length():
+        h >>= len(digest) * 8 - n.bit_length()
+    ctr = 0
+    while True:
+        k = host_nonce(n, d, h + ctr)
+        ctr += 1
+        x, y = oracle_mul(g, k, p, a)
+        r = x % n
+        s = pow(k, -1, n) * (h + r * d) % n
+        if r and s and s <= (n - 1) // 2:
+            return d, oracle_mul(g, d, p, a), ((x // n) << 1) | (y & 1), r, s
+
+
+class EcdsaSlice:
+    """ECDSA through ``signature.ecdsa.ECDSA`` on the card: for each curve
+    and key, ``generate_key``, ``sign_for_recover``, ``verify`` (True),
+    ``verify`` of a tampered message (False), ``recover_public_key`` (the
+    key) and the signature's byte round trip; every key and (v, r, s)
+    against a Python-int ECDSA with the same nonce rule. secp256k1 64 keys
+    and secp256r1 32 (the full-width point kernels: Ethereum's ``ecrecover``
+    over a block's transactions, P-256 passkey checks), stark and bn254 G1 8
+    each (stark recovers through Tonelli-Shanks); and the known secp256k1
+    vector of ``tests/test_signatures.py``."""
+
+    CURVES = (("secp256k1_g1", 64), ("secp256r1_g1", 32), ("stark_g1", 8),
+              ("bn254_g1", 8))
+    KERNELS = ("mont_mul" + W8F, "exp_const" + W8F, "jac_add" + W8F,
+               "jac_double" + W8F, "jac_add", "jac_double")
+
+    def __init__(self, dev):
+        import torch
+
+        self.torch, self.dev = torch, dev
+
+    def main_path(self):
+        from gnark_crypto_tpu_torch.signature import ecdsa
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        self.results, self.sign_s, self.verify_s = {}, {}, {}
+        for name, n_keys in self.CURVES:
+            e = ecdsa.ECDSA(name, device=self.dev)
+            rows, signs, verifies = [], [], []
+            for i in range(n_keys):
+                seed = f"chip-ecdsa-{name}-{i}".encode()
+                msg = f"transaction {i} of a block".encode()
+                key = e.generate_key(seed)
+                (v, sig), s_sign = host_wall(
+                    torch, lambda: e.sign_for_recover(msg, key))
+                ok, s_verify = host_wall(
+                    torch, lambda: e.verify(msg, sig, key.public_key))
+                bad = e.verify(msg + b"!", sig, key.public_key)
+                rec = e.recover_public_key(msg, v, sig)
+                buf = e.signature_to_bytes(sig)
+                f = e.curve.fp
+                rows.append({
+                    "seed": seed, "msg": msg, "d": key.d,
+                    "pub": (f.to_int(key.public_key.q.x)[0],
+                            f.to_int(key.public_key.q.y)[0]),
+                    "vrs": (v, sig.r, sig.s), "ok": ok, "bad": bad,
+                    "rec": (f.to_int(rec.q.x)[0], f.to_int(rec.q.y)[0]),
+                    "bytes": e.signature_from_bytes(buf) == sig
+                    and len(buf) == 2 * e.spec.fr.n_bytes})
+                signs.append(s_sign)
+                verifies.append(s_verify)
+            self.results[name] = rows
+            self.sign_s[name], self.verify_s[name] = signs, verifies
+        self.vector_ok = self.known_vector(ecdsa)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def known_vector(self, ecdsa) -> bool:
+        """The fixed (d, h, k) of ``tests/test_signatures.py``, (r, s) from
+        Python integers, verified on the card."""
+        e = ecdsa.ECDSA("secp256k1_g1", device=self.dev)
+        n, p = e.order, e.spec.fp.modulus
+        d, h, k = 0x1234567890ABCDEF, 0xDEADBEEF, 0x1111111111111111
+        r = oracle_mul((e.spec.gx, e.spec.gy), k, p, 0)[0] % n
+        s = pow(k, -1, n) * (h + r * d) % n
+
+        class FixedHash:
+            def __init__(self, data):
+                pass
+
+            def digest(self):
+                return h.to_bytes(32, "big")
+
+        pub = ecdsa.PublicKey(e._base_mul(d))
+        return (e.verify(b"", ecdsa.Signature(r, s), pub, hasher=FixedHash)
+                and not e.verify(b"", ecdsa.Signature(r, (s + 1) % n), pub,
+                                 hasher=FixedHash))
+
+    def checks(self, compare, check):
+        from gnark_crypto_tpu_torch.specs import curve as cs
+
+        for name, rows in self.results.items():
+            spec = cs.get_curve(name)
+            want = [host_ecdsa(spec, row["seed"], row["msg"])
+                    for row in rows]
+            n = len(rows)
+            check(all(row["d"] == w[0] and row["pub"] == w[1]
+                      for row, w in zip(rows, want)),
+                  f"ecdsa {name}: {n} keys == Python-int keys")
+            check(all(row["vrs"] == w[2:] for row, w in zip(rows, want)),
+                  f"ecdsa {name}: {n} (v, r, s) == Python-int signatures")
+            check(all(row["ok"] is True for row in rows),
+                  f"ecdsa {name}: {n} verify True")
+            check(all(row["bad"] is False for row in rows),
+                  f"ecdsa {name}: {n} tampered verify False")
+            check(all(row["rec"] == row["pub"] for row in rows),
+                  f"ecdsa {name}: {n} recovered keys == the signers'")
+            check(all(row["bytes"] for row in rows),
+                  f"ecdsa {name}: {n} signature byte round trips")
+        check(self.vector_ok, "ecdsa secp256k1 known vector verifies on the "
+              "card (and s + 1 does not)")
+
+    def timings(self, cuda_ms, timings, kernel_rows):
+        import numpy as np
+
+        for name, _ in self.CURVES:
+            signs, verifies = self.sign_s[name], self.verify_s[name]
+            timings[f"ecdsa {name}"] = {
+                "keys": len(signs),
+                "sign_s_median": float(np.median(signs)),
+                "verify_s_median": float(np.median(verifies)),
+                "signs_per_s": len(signs) / sum(signs),
+                "verifies_per_s": len(verifies) / sum(verifies)}
+
+
+def ted_oracle_add(P, Q, a: int, d: int, q: int):
+    """Affine twisted Edwards addition on Python integers (complete)."""
+    (x1, y1), (x2, y2) = P, Q
+    t = d * x1 * x2 * y1 * y2 % q
+    return ((x1 * y2 + y1 * x2) * pow(1 + t, -1, q) % q,
+            (y1 * y2 - a * x1 * x2) * pow(1 - t, -1, q) % q)
+
+
+def ted_oracle_mul(P, k: int, a: int, d: int, q: int):
+    acc = (0, 1)
+    for bit in bin(k)[2:]:
+        acc = ted_oracle_add(acc, acc, a, d, q)
+        if bit == "1":
+            acc = ted_oracle_add(acc, P, a, d, q)
+    return acc
+
+
+def mimc_oracle(name: str, blocks: list[int], h: int = 0) -> int:
+    """MiMC (Miyaguchi-Preneel) of plain Fr blocks on Python integers."""
+    from gnark_crypto_tpu_torch.hashes import mimc
+    from gnark_crypto_tpu_torch.specs import field as fs
+
+    spec = fs.get_field(name)
+    q, (_, e) = spec.modulus, mimc.PARAMS[name]
+    cs = mimc.constants(spec)
+    for m in blocks:
+        r = m
+        for c in cs:
+            r = pow(r + h + c, e, q)
+        h = (r + h + h + m) % q
+    return h
+
+
+def host_eddsa(ted_spec, seed: bytes, msg: bytes) -> bytes:
+    """The signature bytes of ``msg`` under the key of ``seed`` on Python
+    integers: gnark's key pruning and blinding, R = [r]B, hram by MiMC over
+    R, A and the message, s = r + hram * scalar."""
+    import hashlib
+
+    base = ted_spec.base
+    q, nb = base.modulus, base.n_bytes
+    a, d = ted_spec.a % q, ted_spec.d % q
+    g = (ted_spec.gx, ted_spec.gy)
+    h = bytearray(hashlib.blake2b(seed, digest_size=64).digest())
+    rand_src = bytes(h[32:64])
+    h[0] &= 0xF8
+    h[31] &= 0x7F
+    h[31] |= 0x40
+    scalar = int.from_bytes(bytes(reversed(h[:nb])), "big")
+    A = ted_oracle_mul(g, scalar, a, d, q)
+    blind = hashlib.blake2b(rand_src + msg, digest_size=64).digest()
+    r = int.from_bytes(blind[:nb], "big")
+    R = ted_oracle_mul(g, r, a, d, q)
+    padded = b"\x00" * (-len(msg) % nb) + msg
+    blocks = [*R, *A] + [int.from_bytes(padded[i:i + nb], "big")
+                         for i in range(0, len(padded), nb)]
+    hram = mimc_oracle(base.name, blocks)
+    s = (r + hram * scalar) % ted_spec.order
+    yb = bytearray(R[1].to_bytes(nb, "big"))
+    if R[0] > (q - 1) // 2:
+        yb[0] |= 0x80
+    return bytes(reversed(yb)) + s.to_bytes(nb, "big")
+
+
+class EddsaSlice:
+    """EdDSA through ``signature.eddsa.EdDSA`` on the card (the twisted
+    Edwards law and MiMC composed of field ops: each product a ``mont_mul``
+    launch at the curve's Fr width): bn254 (Baby Jubjub) 8 signatures,
+    bls12-381, bandersnatch, bls12-377 and bw6-761 (a 12-word base) 4 each.
+    Each: ``generate_key``, ``sign``, ``verify`` True, False on a tampered
+    message, s + order, s = 0 and an identity R rejected, the signature and
+    public-key codecs; every signature's bytes against a Python-int EdDSA
+    (the curve law and MiMC on host integers)."""
+
+    CURVES = (("bn254", 8), ("bls12_381", 4), ("bandersnatch", 4),
+              ("bls12_377", 4), ("bw6_761", 4))
+    KERNELS = ("mont_mul", "mont_mul" + W12, "exp_const", "exp_const" + W12)
+
+    def __init__(self, dev):
+        import torch
+
+        self.torch, self.dev = torch, dev
+
+    def main_path(self):
+        from gnark_crypto_tpu_torch.signature import eddsa
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        self.results, self.sign_s, self.verify_s = {}, {}, {}
+        for name, n_sigs in self.CURVES:
+            ed = eddsa.EdDSA(name, device=self.dev)
+            c, order = ed.curve, ed.curve.spec.order
+            ident = c.to_affine(c.identity_ext((1,)))
+            rows, signs, verifies = [], [], []
+            for i in range(n_sigs):
+                seed = bytes([i]) * 32
+                msg = (1000 + i).to_bytes(ed.nb, "big")
+                key = ed.generate_key(seed)
+                sig, s_sign = host_wall(torch, lambda: ed.sign(key, msg))
+                ok, s_verify = host_wall(
+                    torch, lambda: ed.verify(key.public_key, sig, msg))
+                s_int = int.from_bytes(sig.s, "big")
+                bad_s = [eddsa.Signature(sig.r, v.to_bytes(ed.nb, "big"))
+                         for v in (s_int + order, 0)]
+                buf = ed.signature_to_bytes(sig)
+                back = ed.signature_from_bytes(buf)
+                pk_buf = ed.public_key_to_bytes(key.public_key)
+                pub2 = ed.public_key_from_bytes(pk_buf)
+                f = c.f
+                rows.append({
+                    "seed": seed, "msg": msg, "bytes": buf, "ok": ok,
+                    "bad": ed.verify(key.public_key, sig,
+                                     (2000 + i).to_bytes(ed.nb, "big")),
+                    "malleable": [ed.verify(key.public_key, b, msg)
+                                  for b in bad_s],
+                    "identity_r": ed.verify(
+                        key.public_key, eddsa.Signature(ident, sig.s), msg),
+                    "codec": (ed.signature_to_bytes(back) == buf
+                              and ed.public_key_to_bytes(pub2) == pk_buf
+                              and back.s == sig.s
+                              and all(f.to_int(u) == f.to_int(v) for u, v in
+                                      zip((*back.r, *pub2.a),
+                                          (*sig.r, *key.public_key.a))))})
+                signs.append(s_sign)
+                verifies.append(s_verify)
+            self.results[name] = rows
+            self.sign_s[name], self.verify_s[name] = signs, verifies
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def checks(self, compare, check):
+        from gnark_crypto_tpu_torch.curve.twistededwards import get_ted
+
+        for name, rows in self.results.items():
+            spec = get_ted(name)
+            n = len(rows)
+            check(all(row["bytes"] == host_eddsa(spec, row["seed"],
+                                                 row["msg"])
+                      for row in rows),
+                  f"eddsa {name}: {n} signatures == Python-int EdDSA bytes")
+            check(all(row["ok"] is True for row in rows),
+                  f"eddsa {name}: {n} verify True")
+            check(all(row["bad"] is False for row in rows),
+                  f"eddsa {name}: {n} tampered verify False")
+            check(all(row["malleable"] == [False, False] for row in rows),
+                  f"eddsa {name}: s + order and s = 0 rejected ({n})")
+            check(all(row["identity_r"] is False for row in rows),
+                  f"eddsa {name}: identity R rejected ({n})")
+            check(all(row["codec"] for row in rows),
+                  f"eddsa {name}: signature and public-key codecs ({n})")
+
+    def timings(self, cuda_ms, timings, kernel_rows):
+        import numpy as np
+
+        for name, _ in self.CURVES:
+            signs, verifies = self.sign_s[name], self.verify_s[name]
+            timings[f"eddsa {name}"] = {
+                "signatures": len(signs),
+                "sign_s_median": float(np.median(signs)),
+                "verify_s_median": float(np.median(verifies)),
+                "signs_per_s": len(signs) / sum(signs),
+                "verifies_per_s": len(verifies) / sum(verifies)}
+
+
+class MimcSlice:
+    """MiMC over bn254 Fr (``hashes.mimc``): ``hash_elements`` over (4,
+    2^log_n) random blocks on the card (each round 3 ``mont_mul`` launches
+    over the 2^log_n lanes), a 2^10-lane slice against Python-int MiMC; the
+    host ``write`` / ``sum`` API on the card against the same."""
+
+    KERNELS = ("mont_mul",)
+    NAME = "bn254_fr"
+
+    def __init__(self, dev, nprng, log_n: int = 20, blocks: int = 4):
+        import torch
+
+        self.torch, self.dev, self.nprng = torch, dev, nprng
+        self.n, self.nb = 1 << log_n, blocks
+
+    def main_path(self):
+        import numpy as np
+
+        from gnark_crypto_tpu_torch.hashes import mimc
+
+        torch = self.torch
+        h = mimc.mimc(self.NAME, self.dev)
+        spec = h.spec
+        w = self.nprng.integers(0, 1 << 32, size=(self.nb, self.n, 8),
+                                dtype=np.uint32)
+        w[..., -1] %= spec.q_words[-1]
+        self.blocks = torch.from_numpy(w.view(np.int32)).to(self.dev)
+        t0 = time.perf_counter()
+        self.out, self.wall = host_wall(torch,
+                                        lambda: h.hash_elements(self.blocks))
+        h.reset()
+        self.data = [(7 * i + 1) for i in range(3)]
+        h.write(b"".join(v.to_bytes(spec.n_bytes, "big")
+                         for v in self.data))
+        self.digest = h.sum()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def checks(self, compare, check):
+        from gnark_crypto_tpu_torch.field import mont
+        from gnark_crypto_tpu_torch.specs import field as fs
+
+        spec = fs.get_field(self.NAME)
+        k = 1 << 10
+        lanes = mont.to_int(spec, self.blocks[:, :k].reshape(-1, 8),
+                            mont=False)
+        got = mont.to_int(spec, self.out[:k], mont=False)
+        want = [mimc_oracle(self.NAME, lanes[j::k]) for j in range(k)]
+        check(got == want, f"mimc {self.NAME} hash_elements ({self.nb}, "
+              f"2^{self.n.bit_length() - 1}): the first {k} lanes == "
+              "Python-int MiMC")
+        check(int.from_bytes(self.digest, "big")
+              == mimc_oracle(self.NAME, self.data),
+              f"mimc {self.NAME} write/sum on the card == Python-int MiMC")
+
+    def timings(self, cuda_ms, timings, kernel_rows):
+        from gnark_crypto_tpu_torch.hashes import mimc
+
+        h = mimc.mimc(self.NAME, self.dev)
+        _, s = host_wall(self.torch, lambda: h.hash_elements(self.blocks))
+        timings[f"mimc {self.NAME} ({self.nb}, 2^"
+                f"{self.n.bit_length() - 1}) blocks"] = {
+            "s": s, "hashes_per_s": self.n / s, "s_main_path": self.wall}
+
+
+class PedersenSlice:
+    """The Starkware Pedersen hash (``hashes.pedersen_hash``) over 2^log_n
+    random pairs on the stark point kernels (a = 1), 16 sampled lanes
+    against Python integers, and pedersen(1, 2) against Starkware's
+    vector."""
+
+    KERNELS = ("mont_mul", "exp_const", "jac_add", "jac_double")
+    VECTOR = 0x5bb9440e27889a364bcb678b1f679ecd1347acdedcbf36e83494f857cc58026
+
+    def __init__(self, dev, nprng, log_n: int = 16):
+        import torch
+
+        self.torch, self.dev, self.nprng = torch, dev, nprng
+        self.n = 1 << log_n
+
+    def main_path(self):
+        from gnark_crypto_tpu_torch.hashes import pedersen_hash
+        from gnark_crypto_tpu_torch.specs import field as fs
+
+        p = fs.STARK_FP.modulus
+        rng = random.Random(SEED + 252)
+        self.a = [rng.randrange(p) for _ in range(self.n)]
+        self.b = [rng.randrange(p) for _ in range(self.n)]
+        t0 = time.perf_counter()
+        self.out, self.wall = host_wall(
+            self.torch, lambda: pedersen_hash.pedersen(self.a, self.b,
+                                                       self.dev))
+        self.one_two = pedersen_hash.pedersen([1], [2], self.dev)[0]
+        return time.perf_counter() - t0
+
+    def checks(self, compare, check):
+        from gnark_crypto_tpu_torch.hashes import pedersen_hash as ph
+        from gnark_crypto_tpu_torch.specs import field as fs
+
+        p = fs.STARK_FP.modulus
+        m = (1 << 248) - 1
+
+        def oracle(a: int, b: int) -> int:
+            acc = ph.SHIFT
+            for k, i in ((a & m, 0), (a >> 248, 1), (b & m, 2),
+                         (b >> 248, 3)):
+                acc = oracle_add(acc, oracle_mul(ph.P[i], k, p, 1), p, 1)
+            return acc[0]
+
+        check(self.one_two == self.VECTOR, "pedersen(1, 2) on the card == "
+              "Starkware's vector")
+        rng = random.Random(SEED + 253)
+        idx = [0, self.n - 1] + rng.sample(range(1, self.n - 1),
+                                           min(14, self.n - 2))
+        check([self.out[i] for i in idx]
+              == [oracle(self.a[i], self.b[i]) for i in idx],
+              f"pedersen 2^{self.n.bit_length() - 1} pairs: {len(idx)} "
+              "sampled lanes == Python-int hashes")
+
+    def timings(self, cuda_ms, timings, kernel_rows):
+        from gnark_crypto_tpu_torch.hashes import pedersen_hash
+
+        _, s = host_wall(self.torch, lambda: pedersen_hash.pedersen(
+            self.a, self.b, self.dev))
+        timings[f"pedersen stark 2^{self.n.bit_length() - 1} pairs"] = {
+            "s": s, "hashes_per_s": self.n / s, "s_main_path": self.wall}
+
+
 def main() -> int:
     import torch
 
@@ -2704,6 +3320,18 @@ def main() -> int:
                ToolkitSlice(dev, tk_rng, "bn254", 20, kzg, msm,
                             pedersen_log=16, multilin_log=20),
                ToolkitSlice(dev, tk_rng, "bw6_633", 16, bw6_kzg[1])]
+    # secp256k1 and secp256r1 on the full-width 8-word kernels: the G1 MSM
+    # (secp256k1 at 2^12, 2^16, 2^20; secp256r1, a = -3, at 2^12 and 2^16),
+    # the field kernels on the four 256-bit fields, ECDSA; then EdDSA over
+    # MiMC, MiMC over 2^20 lanes and the stark Pedersen hash over 2^16 pairs
+    secp_rng = np.random.default_rng(SEED + 256)
+    secp_msm = [MsmSlice(dev, secp_rng, sizes=(12, 16, 20), stark_log=None,
+                         name="secp256k1_g1"),
+                MsmSlice(dev, secp_rng, sizes=(12, 16), stark_log=None,
+                         name="secp256r1_g1")]
+    full_field = FullFieldSlice(dev, secp_rng)
+    sig_slices = [EcdsaSlice(dev), EddsaSlice(dev), MimcSlice(dev, secp_rng),
+                  PedersenSlice(dev, secp_rng)]
     ntt_kernels = ("mont_mul", "ntt_radix2_stage", "ntt_radix2_block",
                    "ntt_four_step")
     wrappers = {"mont_mul": kernels.mont_mul,
@@ -2715,8 +3343,9 @@ def main() -> int:
 
     def read_counts() -> dict:
         """{kernel row: launches}: a kernel built at several widths counts
-        its 8-word launches under its name and its 10-, 12-, 20- and
-        24-word ones under name + W10, W12, W20 and W24."""
+        its 8-word launches under its name, its 10-, 12-, 20- and 24-word
+        ones under name + W10, W12, W20 and W24, and those on the 256-bit
+        8-word fields under name + W8F."""
         counts = {}
         for name, w in wrappers.items():
             if name in NTT_KERNELS:
@@ -2732,6 +3361,8 @@ def main() -> int:
                     counts[name + W24] = w.launches_by_width.get(24, 0)
             else:
                 counts[name] = w.launches
+            if name in FULL_KERNELS:
+                counts[name + W8F] = w.launches_by_width.get("8full", 0)
         return counts
 
     def drive(path: str, run, kernel_names) -> dict:
@@ -2814,13 +3445,21 @@ def main() -> int:
                  for sl in wide_ntt]
     tk_counts += [drive(f"{sl.NAME} toolkit", sl.main_path, sl.kernels)
                   for sl in toolkit]
+    secp_counts = [drive(f"{sl.spec.name} MSM", sl.main_path, sl.kernels)
+                   for sl in secp_msm]
+    secp_counts.append(drive("256-bit field", full_field.main_path,
+                             full_field.KERNELS))
+    sig_counts = [drive(label, sl.main_path, sl.KERNELS) for label, sl in
+                  zip(("ECDSA", "EdDSA", "MiMC", "stark Pedersen"),
+                      sig_slices)]
     path_counts = (ntt_counts, msm_counts, pair_counts, g2_counts,
                    kzg_counts, small_counts, *bls_counts, *bls24_counts,
-                   *bw6_counts, *tk_counts)
+                   *bw6_counts, *tk_counts, *secp_counts, *sig_counts)
     row_names = (list(wrappers) + [k + W12 for k in W12_KERNELS]
                  + [k + W10 for k in W10_KERNELS]
                  + [k + w for w in (W20, W24) for k in W10_KERNELS]
-                 + [k + w for w in (W10, W12) for k in NTT_KERNELS])
+                 + [k + w for w in (W10, W12) for k in NTT_KERNELS]
+                 + [k + W8F for k in FULL_KERNELS])
     launches = {name: sum(c[name] for c in path_counts)
                 for name in row_names}
     for name in W12_KERNELS:
@@ -2838,11 +3477,16 @@ def main() -> int:
         for sl, w, c in zip(wide_ntt, (W12, W10), tk_counts):
             check(c[name + w] > 0, f"{name} launched at {w[2:]} words on "
                   f"the {sl.spec.name} NTT path ({c[name + w]})")
+    for name in FULL_KERNELS:
+        for sl, c in zip(secp_msm, secp_counts):
+            check(c[name + W8F] > 0, f"{name} launched at the full 256-bit "
+                  f"width on the {sl.spec.name} MSM path ({c[name + W8F]})")
     print("launches by path: " + json.dumps(
         {"ntt": ntt_counts, "msm": msm_counts, "pairing": pair_counts,
          "g2_msm": g2_counts, "kzg": kzg_counts, "small": small_counts,
          "bls12": bls_counts, "bls24": bls24_counts, "bw6": bw6_counts,
-         "bw6_ntt_and_toolkit": tk_counts}), flush=True)
+         "bw6_ntt_and_toolkit": tk_counts, "secp": secp_counts,
+         "signatures_and_hashes": sig_counts}), flush=True)
 
     # ---------------------------------------------------------------- phase 2
     # seconds of each step of phases 2 and 3, printed at the end
@@ -2964,7 +3608,8 @@ def main() -> int:
     spent["checks NTT"] = time.perf_counter() - t_step
     for sl in (msm, pairing, g2msm, kzg, small, *bls_msm, *bls_pair,
                *bls_g2, *bls_kzg, *bls24_msm, *bls24_pair, *bls24_kzg,
-               *bw6_msm, *bw6_pair, *bw6_kzg, *wide_ntt, *toolkit):
+               *bw6_msm, *bw6_pair, *bw6_kzg, *wide_ntt, *toolkit,
+               *secp_msm, full_field, *sig_slices):
         timed(f"checks {slice_label(sl)}", sl.checks, compare, check)
     t_step = time.perf_counter()
 
@@ -3089,6 +3734,12 @@ def main() -> int:
     for sl in (*wide_ntt, *toolkit):
         timed(f"timings {slice_label(sl)}", sl.timings, cuda_ms, timings,
               kernel_rows)
+    # the full-width rows from secp256k1; secp256r1's (a = -3) and the
+    # 256-bit field kernels at 2^20 in the timings line
+    for sl, into in ((secp_msm[0], kernel_rows), (secp_msm[1], {}),
+                     (full_field, {}), *((sl, {}) for sl in sig_slices)):
+        timed(f"timings {slice_label(sl)}", sl.timings, cuda_ms, timings,
+              into)
 
     kernel_line = []
     sources = {
@@ -3130,7 +3781,7 @@ def main() -> int:
     for name in row_names:
         r = kernel_rows[name]
         base = name
-        for w in (W10, W12, W20, W24):
+        for w in (W10, W12, W20, W24, W8F):
             base = base.removesuffix(w)
         kernel_line.append({
             "name": name, "route": "cuda", "source": sources[base][0],

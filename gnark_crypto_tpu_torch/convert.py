@@ -18,6 +18,14 @@ gnark bytes: ``ntt.domain.domain_from_bytes`` reads what the JAX
 BLS24), crosses coordinate by coordinate (:func:`point_from_jax`,
 :func:`point_to_jax`); scalars cross with ``mont_form=False``.
 
+Signature state crosses the same way (:func:`ecdsa_key_from_jax`,
+:func:`ecdsa_key_to_jax`, :func:`eddsa_key_from_jax`,
+:func:`eddsa_key_to_jax`, :func:`eddsa_signature_from_jax`,
+:func:`eddsa_signature_to_jax`, :func:`mimc_from_jax`,
+:func:`mimc_to_jax`): points coordinate by coordinate, scalars and byte
+strings as they are, a MiMC hasher as its chaining value and buffered
+blocks.
+
 Protocol state crosses field by field on the same rule: an IOP
 ``Polynomial`` (its plain values, basis and layout by name;
 :func:`poly_from_jax`, :func:`poly_to_jax`), a permutation ``Proof``
@@ -233,3 +241,101 @@ def pedersen_keys_to_jax(name: str, pks, vk) -> dict:
                     for pk in pks],
             "vk": {"g": point_to_jax(fp, vk.g),
                    "g_sigma_neg": point_to_jax(fp, vk.g_sigma_neg)}}
+
+
+# ---------------------------------------------------------------------------
+# signature state: ECDSA and EdDSA keys, EdDSA signatures, MiMC hashers
+# ---------------------------------------------------------------------------
+
+def ecdsa_key_from_jax(curve_name: str, key, device=mont.DEFAULT_DEVICE):
+    """A JAX ECDSA ``PublicKey`` or ``PrivateKey`` over ``curve_name`` ->
+    the port's, the point on ``device``."""
+    from gnark_crypto_tpu_torch.signature import ecdsa
+    from gnark_crypto_tpu_torch.specs import curve as cs
+
+    fp = cs.get_curve(curve_name).fp
+    if hasattr(key, "d"):
+        return ecdsa.PrivateKey(
+            ecdsa_key_from_jax(curve_name, key.public_key, device),
+            int(key.d))
+    return ecdsa.PublicKey(_affine_from_jax(fp, key.q, device))
+
+
+def ecdsa_key_to_jax(curve_name: str, key) -> dict:
+    """The port's ECDSA key -> {"q": (x, y) canonical JAX limbs} for a
+    public key, {"public_key": that, "d": int} for a private one."""
+    from gnark_crypto_tpu_torch.specs import curve as cs
+
+    if hasattr(key, "d"):
+        return {"public_key": ecdsa_key_to_jax(curve_name, key.public_key),
+                "d": key.d}
+    return {"q": point_to_jax(cs.get_curve(curve_name).fp, key.q)}
+
+
+def _ted_base(name: str) -> FieldSpec:
+    from gnark_crypto_tpu_torch.curve.twistededwards import get_ted
+
+    return get_ted(name).base
+
+
+def _ted_point_from_jax(name: str, p, device):
+    from gnark_crypto_tpu_torch.curve.twistededwards import AffinePoint
+
+    base = _ted_base(name)
+    return AffinePoint(*(from_jax_limbs(base, np.asarray(c), device=device)
+                         for c in (p.x, p.y)))
+
+
+def eddsa_key_from_jax(name: str, key, device=mont.DEFAULT_DEVICE):
+    """A JAX EdDSA ``PublicKey`` or ``PrivateKey`` on the twisted Edwards
+    curve ``name`` -> the port's, the point on ``device``."""
+    from gnark_crypto_tpu_torch.signature import eddsa
+
+    if hasattr(key, "scalar"):
+        return eddsa.PrivateKey(
+            eddsa_key_from_jax(name, key.public_key, device),
+            bytes(key.scalar), bytes(key.rand_src))
+    return eddsa.PublicKey(_ted_point_from_jax(name, key.a, device))
+
+
+def eddsa_key_to_jax(name: str, key) -> dict:
+    """The port's EdDSA key -> {"a": (x, y) canonical JAX limbs} for a
+    public key, {"public_key": that, "scalar", "rand_src"} for a private
+    one."""
+    if hasattr(key, "scalar"):
+        return {"public_key": eddsa_key_to_jax(name, key.public_key),
+                "scalar": key.scalar, "rand_src": key.rand_src}
+    return {"a": point_to_jax(_ted_base(name), key.a)}
+
+
+def eddsa_signature_from_jax(name: str, sig, device=mont.DEFAULT_DEVICE):
+    """A JAX EdDSA ``Signature`` -> the port's (R on ``device``)."""
+    from gnark_crypto_tpu_torch.signature import eddsa
+
+    return eddsa.Signature(_ted_point_from_jax(name, sig.r, device),
+                           bytes(sig.s))
+
+
+def eddsa_signature_to_jax(name: str, sig) -> dict:
+    """The port's EdDSA ``Signature`` -> {"r": (x, y) canonical JAX limbs,
+    "s": bytes}."""
+    return {"r": point_to_jax(_ted_base(name), sig.r), "s": sig.s}
+
+
+def mimc_from_jax(h, device=mont.DEFAULT_DEVICE):
+    """A JAX ``MiMC`` hasher -> a new port hasher of the same field, with
+    its chaining value and buffered blocks, hashing on ``device``."""
+    from gnark_crypto_tpu_torch.hashes.mimc import MiMC
+    from gnark_crypto_tpu_torch.specs.field import get_field
+
+    out = MiMC(get_field(h.spec.name), device)
+    out._state = int(h._state)
+    out._data = [bytes(c) for c in h._data]
+    return out
+
+
+def mimc_to_jax(h) -> dict:
+    """A port ``MiMC`` hasher -> {"field": name, "state": the chaining
+    value (int), "data": the buffered blocks}; set them on a JAX hasher of
+    that field (``set_state`` and ``write`` check them again)."""
+    return {"field": h.spec.name, "state": h._state, "data": list(h._data)}

@@ -1,6 +1,6 @@
 // One level of the MSM's batch-affine bucket tree, in two kernels around
 // the batched inversion of the denominators, at W = 8, 10, 12, 20 and 24
-// words.
+// words (at 8 for any q < 2^256: secp256k1/r1 too).
 //
 // Replaces the Pallas kernels gnark_crypto_tpu/field/pallas/point_add.py
 // `affine_prep` (`_prep_kernel`) and `affine_finish` (`_finish_kernel`).

@@ -143,7 +143,12 @@ struct Team {
       }
       out = (uint32_t)t;
     }
-    // the sum is < 2q < 2^(32W): subtract q unless that borrows
+    // the sum is < 2q, which is < 2^(32W) only for q < 2^(32W-1): the
+    // carry out of the team's top lane (out of lane T - 1) is dropped here,
+    // so a team product is wrong for a q that fills all 32W bits, and
+    // gct_exp_const refuses one. At 8 words (secp256k1/r1) T = 1: the
+    // column product, whose top carry word reduce_once takes.
+    // Subtract q unless that borrows.
     E d;
     uint32_t borrow = 0;
 #pragma unroll
@@ -286,7 +291,8 @@ void exp_args(const uint32_t* one_words, const uint32_t* exp_words,
 
 }  // namespace
 
-// n_words: 8, 10, 12, 20 or 24; one_words: Montgomery one (R mod q);
+// n_words: 8, 10, 12, 20 or 24 (at 8 any q < 2^256, else q < 2^(32W-1));
+// one_words: Montgomery one (R mod q);
 // exp_words: e's n_words words, e < 2^(32 n_words); nbits: e's bit length.
 extern "C" int gct_exp_const(const void* x, void* out, long long n,
                              int n_words, const uint32_t* field_words,
@@ -296,6 +302,9 @@ extern "C" int gct_exp_const(const void* x, void* out, long long n,
   return gct::for_width(n_words, [&](auto width) {
     constexpr int W = decltype(width)::value;
     if (n <= 0) return 0;
+    // the team product needs q < 2^(32W-1) (Team<W, T>::mul)
+    if (kTeam<W> > 1 && (field_words[W - 1] >> 31))
+      return (int)cudaErrorInvalidValue;
     gct::ElemT<W> one;
     ExpConst<W> ec;
     exp_args<W>(one_words, exp_words, nbits, one, ec);

@@ -2,8 +2,13 @@
 // over W, instantiated at W = 8 (bn254 Fr/Fp, the stark curve), W = 10
 // (bls24-315 Fp, bls24-317 Fp, bw6-633 Fr), W = 12 (bls12-381 Fp,
 // bls12-377 Fp, bw6-761 Fr), W = 20 (bw6-633 Fp) and W = 24 (bw6-761 Fp).
-// The wrappers admit a width only for q < 2^(32W-1) (field/kernels.py),
-// which reduce_once needs.
+// Every op here is exact for any odd q < R = 2^(32W): reduce_once takes the
+// top word of a sum below 2q < 2R, the CIOS keeps its sum below 2q in W + 1
+// words, the column product below 2q in its carry words, and at W = 8 that
+// takes the 256-bit secp256k1/r1 moduli (2^255 <= q < 2^256). Which kernel
+// admits which q the wrappers decide (field/kernels.py check_width): the
+// field, exponent and G1 point kernels take q < 2^256 at 8 words, every
+// other kernel and width q < 2^(32W-1).
 //
 // Shared by every kernel of this directory. Elements are canonical (< q),
 // little-endian words, 4W bytes each, in (N, W) rows: one element is W/4
@@ -90,7 +95,9 @@ __device__ __forceinline__ void store_elem(uint32_t* p, const ElemT<W>& e) {
   }
 }
 
-// a + top*2^(32W) - q if that is >= 0, else a. Needs a + top*2^(32W) < 2q.
+// a + top*2^(32W) - q if that is >= 0, else a. Needs a + top*2^(32W) < 2q,
+// so top is 0 or 1 for any q < 2^(32W); where top is 1 the value exceeds q
+// and a - q wraps to a + 2^(32W) - q.
 template <int W>
 __device__ __forceinline__ ElemT<W> reduce_once(const ElemT<W>& a,
                                                 uint32_t top,

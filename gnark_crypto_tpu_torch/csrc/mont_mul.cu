@@ -1,5 +1,6 @@
 // Batched Montgomery product out[i] = x[i] * y[i] * 2^(-32W) mod q, at
-// W = 8, 10, 12, 20 and 24 words.
+// W = 8, 10, 12, 20 and 24 words; at 8 for any q < 2^256, so the 256-bit
+// secp256k1/r1 moduli too (csrc/field.cuh).
 //
 // Replaces the Pallas kernel gnark_crypto_tpu/field/pallas/mont_mul.py
 // `mont_mul` (tile body `_mm_tile`): there lazy-carry 11-13-bit limbs in

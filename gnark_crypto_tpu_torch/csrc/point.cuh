@@ -1,7 +1,10 @@
 // Short-Weierstrass point arithmetic on W-word Montgomery elements (W = 8,
-// 10, 12, 20 and 24): the device cores of csrc/point_add.cu and
-// csrc/affine_level.cu, and over Fp2 (csrc/fp2.cuh, 8 and 12 words) of csrc/point_add2.cu and
-// csrc/affine_level2.cu. Each core is a template over the element type E
+// 10, 12, 20 and 24; at 8 also the 256-bit secp256k1/r1 Fp, since every
+// core here is built of the canonical field ops, exact for any q < R, and
+// takes any a: 0 for secp256k1, -3 for secp256r1): the device cores of
+// csrc/point_add.cu and csrc/affine_level.cu, and over Fp2 (csrc/fp2.cuh,
+// 8 and 12 words) of csrc/point_add2.cu and csrc/affine_level2.cu. Each
+// core is a template over the element type E
 // (ElemT<W> or Elem2T<W, NR>) and its field constants FC, and calls the
 // field ops by overload, as the JAX package's cores take an ops tuple.
 //

@@ -1,5 +1,6 @@
 // Batched Jacobian point add and double, and the MSM's Horner window fold,
-// at W = 8, 10, 12, 20 and 24 words.
+// at W = 8, 10, 12, 20 and 24 words (at 8 for any q < 2^256: secp256k1/r1
+// too).
 //
 // Replaces the Pallas kernels of gnark_crypto_tpu/field/pallas/point_add.py:
 // `jac_add` (`_kernel`, `_add_core_ops`), `jac_double` (`_dbl_kernel`,

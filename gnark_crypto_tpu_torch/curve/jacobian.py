@@ -29,11 +29,11 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from gnark_crypto_tpu_torch.field import point_add, point_add2
 from gnark_crypto_tpu_torch.field.api import FieldEngine, for_spec
-from gnark_crypto_tpu_torch.field.kernels import u32
 from gnark_crypto_tpu_torch.field.mont import DEFAULT_DEVICE
 from gnark_crypto_tpu_torch.specs.curve import CurveSpec
 
@@ -47,6 +47,27 @@ class Jac(NamedTuple):
     x: torch.Tensor
     y: torch.Tensor
     z: torch.Tensor
+
+
+def _le_bits(raw: np.ndarray, nbits: int, device
+             ) -> tuple[torch.Tensor, list[bool]]:
+    """Bits 0..nbits-1 of little-endian (n, bytes) uint8 rows, MSB first:
+    (nbits, n) int32 on ``device``, and whether each bit row has a bit
+    set."""
+    bits = np.unpackbits(raw, axis=1, count=nbits, bitorder="little")
+    bits = np.ascontiguousarray(bits[:, ::-1].T)
+    return (torch.from_numpy(bits.astype(np.int32)).to(device),
+            bits.any(axis=1).tolist())
+
+
+def int_bits(ks: list[int], nbits: int, device
+             ) -> tuple[torch.Tensor, list[bool]]:
+    """MSB-first bits of host integers 0 <= k < 2^nbits: (nbits, len(ks))
+    int32 on ``device``, and whether each bit row has a bit set."""
+    nb = (nbits + 7) // 8
+    raw = np.frombuffer(b"".join(k.to_bytes(nb, "little") for k in ks),
+                        dtype=np.uint8).reshape(len(ks), nb)
+    return _le_bits(raw, nbits, device)
 
 
 def _flat(coords, tail: tuple[int, ...]):
@@ -287,25 +308,27 @@ class Curve:
 
     # -- scalar multiplication ---------------------------------------------
     def scalar_bits(self, k: torch.Tensor, nbits: int | None = None
-                    ) -> torch.Tensor:
+                    ) -> tuple[torch.Tensor, list[bool]]:
         """Plain Fr words (..., W) -> int32 bit matrix (nbits, ...), MSB
-        first."""
+        first, and whether each bit row has a bit set (:func:`int_bits`)."""
         nbits = nbits or self.spec.fr.modulus.bit_length()
-        u = u32(k)
-        zero = torch.zeros_like(u[..., 0])
-        cols = [(u[..., i // 32] >> (i % 32)) & 1 if i // 32 < u.shape[-1]
-                else zero for i in range(nbits)]
-        return torch.stack(cols[::-1], dim=0).to(torch.int32)
+        raw = (k.reshape(-1, k.shape[-1]).cpu().numpy().astype("<i4")
+               .view(np.uint8))
+        bits, any_set = _le_bits(raw, nbits, k.device)
+        return bits.reshape(nbits, *k.shape[:-1]), any_set
 
-    def scalar_mul(self, p: Jac, k: torch.Tensor, nbits: int | None = None
-                   ) -> Jac:
-        """[k]P by double-and-add over the scalar bits, MSB first; rows
-        where no lane adds only double. k is plain Fr words."""
-        bits = self.scalar_bits(k, nbits)
+    def scalar_mul(self, p: Jac, k: torch.Tensor, nbits: int | None = None,
+                   regular: bool = False) -> Jac:
+        """[k]P by double-and-add over the scalar bits, MSB first. k is
+        plain Fr words. Steps where no lane has its bit set only double,
+        unless ``regular``: then every step adds and selects, as the JAX
+        ladder does, so that the launches and the time do not follow the
+        bits of a secret scalar (a key, a nonce)."""
+        bits, any_set = self.scalar_bits(k, nbits)
         acc = self.inf_jac(self.fp.eshape(p.x), device=p.x.device)
-        for row, any_set in zip(bits, bits.reshape(len(bits), -1).amax(1).tolist()):
+        for row, go in zip(bits, any_set):
             acc = self.double(acc)
-            if any_set:
+            if go or regular:
                 acc = self._select(row == 1, self.add(acc, p), acc)
         return acc
 
@@ -314,10 +337,8 @@ class Curve:
         """[k1]P + [k2]Q with one shared doubling chain (Strauss-Shamir,
         reference g1.go:873 JointScalarMultiplication): two masked adds per
         step."""
-        b1 = self.scalar_bits(k1, nbits)
-        b2 = self.scalar_bits(k2, nbits)
-        any1 = b1.reshape(len(b1), -1).amax(1).tolist()
-        any2 = b2.reshape(len(b2), -1).amax(1).tolist()
+        b1, any1 = self.scalar_bits(k1, nbits)
+        b2, any2 = self.scalar_bits(k2, nbits)
         acc = self.inf_jac(self.fp.eshape(p.x), device=p.x.device)
         for r1, r2, a1, a2 in zip(b1, b2, any1, any2):
             acc = self.double(acc)

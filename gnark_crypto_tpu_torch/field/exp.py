@@ -3,8 +3,10 @@
 ``exp_const(spec, x, e)`` on an ``(N, W)`` int32 word tensor returns x^e
 (Montgomery in and out) for a Python-int exponent e >= 0; 0^e = 0 for
 e > 0, so e = q - 2 is the Fermat inverse with 0 -> 0. A CUDA tensor goes
-to ``csrc/exp.cu`` (W = 8, 10, 12, 20 or 24 words), a CPU tensor to
-:func:`exp_const_plain`, the MSB-first ladder on :func:`mont_mul_plain`.
+to ``csrc/exp.cu`` (W = 8, 10, 12, 20 or 24 words; at 8 also the 256-bit
+secp256k1/r1 moduli, whose lone-lane column product is exact for any
+q < 2^256), a CPU tensor to :func:`exp_const_plain`, the MSB-first ladder
+on :func:`mont_mul_plain`.
 Both return canonical residues, so they agree bit for bit. There is no size
 threshold: the kernel serves any batch, in one launch.
 
@@ -26,7 +28,7 @@ import functools
 import torch
 
 from gnark_crypto_tpu_torch.field.kernels import (
-    FIELD_WIDTHS, check_kernel_args, const_words, count_launch,
+    FIELD_WIDTHS, FULL_WIDTHS, check_kernel_args, const_words, count_launch,
     mont_mul_plain, to_i32)
 from gnark_crypto_tpu_torch.specs.field import FieldSpec, int_to_words
 from gnark_crypto_tpu_torch.utils import build
@@ -67,7 +69,8 @@ def exp_const(spec: FieldSpec, x: torch.Tensor, e: int) -> torch.Tensor:
         raise ValueError("negative exponent: combine with inverse()")
     if not x.is_cuda:
         return exp_const_plain(spec, x, e)
-    check_kernel_args(spec, "exp_const", x, widths=FIELD_WIDTHS)
+    check_kernel_args(spec, "exp_const", x, widths=FIELD_WIDTHS,
+                      full_widths=FULL_WIDTHS)
     words, nbits = exponent_words(spec, e)
     out = torch.empty_like(x)
     word_t = ctypes.c_uint32 * spec.n_words

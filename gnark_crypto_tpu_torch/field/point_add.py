@@ -13,8 +13,9 @@ the JAX wrapper's argument order, with the curve's ``a`` as a plain int:
 * :func:`jac_fold_windows`: the Horner fold of the per-window totals.
 
 A CUDA tensor goes to ``csrc/point_add.cu`` or ``csrc/affine_level.cu``
-(cores in ``csrc/point.cuh``; W = 8, 10, 12, 20 or 24 words), a CPU
-tensor to the ``*_plain`` version here. The plain versions use only
+(cores in ``csrc/point.cuh``; W = 8, 10, 12, 20 or 24 words, and at 8
+the 256-bit secp256k1/r1 Fp too), a CPU tensor to the ``*_plain`` version
+here. The plain versions use only
 :func:`mont_mul_plain` and the plain ``mont.add``/``mont.sub``, so on the
 card they launch no kernel. Both follow the JAX formulas in the same
 order with canonical arithmetic, so they agree bit for bit, and with the
@@ -34,7 +35,7 @@ import torch
 
 from gnark_crypto_tpu_torch.field import mont
 from gnark_crypto_tpu_torch.field.kernels import (
-    FIELD_WIDTHS, check_kernel_args, const_words, count_launch,
+    FIELD_WIDTHS, FULL_WIDTHS, check_kernel_args, const_words, count_launch,
     mont_mul_plain, to_i32)
 from gnark_crypto_tpu_torch.specs.field import FieldSpec, int_to_words
 from gnark_crypto_tpu_torch.utils import build
@@ -247,7 +248,8 @@ def _curve_args(spec: FieldSpec, a_int: int):
 
 
 def _check(spec: FieldSpec, what: str, *coords: torch.Tensor) -> int:
-    check_kernel_args(spec, what, *coords, widths=FIELD_WIDTHS)
+    check_kernel_args(spec, what, *coords, widths=FIELD_WIDTHS,
+                      full_widths=FULL_WIDTHS)
     n = coords[0].shape[0]
     if any(t.shape[0] != n for t in coords):
         raise ValueError(f"{what}: coordinate tensors differ in length")

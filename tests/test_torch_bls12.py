@@ -4,8 +4,9 @@
   (``field/kernels.py`` ``check_width``), called directly since it needs
   no card: the field, exponent, point and VM kernels are built at 8, 10,
   12, 20 and 24 words, the Fp2 point kernels at 8 and 12, the NTT kernels
-  at 8 only, and no kernel takes an 8-word q >= 2^255 (secp256k1/r1). The Fp2 kernels take only the (words, nr) pairs they
-  were built for: (8, -1), (12, -1) and (12, -5).
+  at 8, 10 and 12; of them only the field, exponent and G1 point kernels
+  take an 8-word q >= 2^255 (secp256k1/r1). The Fp2 kernels take only the
+  (words, nr) pairs they were built for: (8, -1), (12, -1) and (12, -5).
 * What the 12-word kernels receive from the host, against Python integers:
   the field words and -q^-1 mod 2^32, Montgomery one, the exponent words of
   q - 2 (and of an exponent past 2^384), the curve words, the Fp2 kernels'
@@ -78,15 +79,19 @@ ADMITTED_BY_FIELD_KERNELS = [
     ("bls24_315_fp", 10), ("bls24_317_fp", 10), ("bw6_633_fr", 10),
     ("bls12_381_fp", 12), ("bls12_377_fp", 12), ("bw6_761_fr", 12),
     ("bw6_633_fp", 20), ("bw6_761_fp", 24)]
-REFUSED_EVERYWHERE = [
+# the 256-bit 8-word fields: taken by the field, exponent and G1 point
+# kernels only
+FULL_WIDTH = [
     ("secp256k1_fp", 8), ("secp256k1_fr", 8), ("secp256r1_fp", 8),
     ("secp256r1_fr", 8)]
-# the widths each wrapper passes to check_kernel_args / check_width
+# the widths each wrapper passes to check_kernel_args / check_width, and
+# the widths at which it takes a q that fills all 32W bits
 WRAPPER_WIDTHS = {
-    "mont_mul, exp_const, the G1 point kernels, vm_execute":
-        kernels.FIELD_WIDTHS,
-    "ntt_radix2, ntt_four_step": radix2.WIDTHS,
-    "the Fp2 point kernels": point_add2.WIDTHS}
+    "mont_mul, exp_const, the G1 point kernels":
+        (kernels.FIELD_WIDTHS, kernels.FULL_WIDTHS),
+    "vm_execute": (kernels.FIELD_WIDTHS, ()),
+    "ntt_radix2, ntt_four_step": (radix2.WIDTHS, ()),
+    "the Fp2 point kernels": (point_add2.WIDTHS, ())}
 
 
 def test_wrapper_widths():
@@ -113,13 +118,18 @@ def test_width_check_admits(name, words):
             kernels.check_width(spec, "NTT kernel", radix2.WIDTHS)
 
 
-@pytest.mark.parametrize("name,words", REFUSED_EVERYWHERE)
+@pytest.mark.parametrize("name,words", FULL_WIDTH)
 def test_width_check_refuses(name, words):
+    """Every wrapper but the field, exponent and G1 point kernels refuses
+    the 256-bit 8-word fields; those take them."""
     spec = tfs.get_field(name)
-    assert spec.n_words == words
-    for what, widths in WRAPPER_WIDTHS.items():
-        with pytest.raises(NotImplementedError):
-            kernels.check_width(spec, what, widths)
+    assert spec.n_words == words and kernels.FULL_WIDTHS == (8,)
+    for what, (widths, full) in WRAPPER_WIDTHS.items():
+        if full:
+            kernels.check_width(spec, what, widths, full)
+        else:
+            with pytest.raises(NotImplementedError):
+                kernels.check_width(spec, what, widths, full)
 
 
 # (field, nr): the Fp2 pairs the kernels admit, and pairs they refuse

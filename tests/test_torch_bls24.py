@@ -3,7 +3,8 @@
 * Which kernels take which fields: the field, exponent, G1 point and VM
   kernels are built at 8, 10, 12, 20 and 24 words, so they take bls24 Fp
   (and bw6-633 Fr, bls24-315's Fp); the Fp2 and NTT kernels take no
-  10-word field, and no kernel takes secp256k1/r1. What the 10-word
+  10-word field, and only the field, exponent and G1 point kernels take
+  secp256k1/r1. What the 10-word
   kernels receive from the host, against Python integers.
 * The field at bls24 Fp against Python integers and the JAX engine.
 * ``towers/tower24.py`` against the JAX ``Tower24`` on the same seeded
@@ -73,7 +74,7 @@ def words_int(words) -> int:
 TEN_WORDS = ["bls24_315_fp", "bls24_317_fp", "bw6_633_fr"]
 # bw6 Fp: admitted by the field kernels since their 20- and 24-word
 # instantiations, refused by the NTT and Fp2 ones; secp256k1/r1 refused by
-# every kernel
+# every kernel but the field, exponent and G1 point ones
 STILL_REFUSED = [("bw6_633_fp", 20), ("bw6_761_fp", 24),
                  ("secp256k1_fp", 8), ("secp256k1_fr", 8),
                  ("secp256r1_fp", 8), ("secp256r1_fr", 8)]
@@ -95,21 +96,23 @@ def test_field_kernels_take_10_words(name):
 
 @pytest.mark.parametrize("name,words", STILL_REFUSED)
 def test_kernels_still_refuse_bw6_and_secp(name, words):
-    """secp256k1/r1 (8 words, q >= 2^255) are refused by every kernel,
-    naming the ROADMAP's width (d); bw6 Fp (20 and 24 words) by the NTT and
-    Fp2 kernels only, which no field of that width needs, naming no
-    ROADMAP width, and the field kernels take it."""
+    """secp256k1/r1 (8 words, q >= 2^255) are refused by the VM, NTT and
+    Fp2 kernels, and taken by the field kernels at their full width; bw6 Fp
+    (20 and 24 words) by the NTT and Fp2 kernels only, which no field of
+    that width needs, and the field kernels take it. No message names a
+    ROADMAP width still to build: none is left."""
     spec = tfs.get_field(name)
     assert spec.n_words == words
     refused = (radix2.WIDTHS, point_add2.WIDTHS)
     if words == 8:
-        refused += (kernels.FIELD_WIDTHS,)
-    else:
-        kernels.check_width(spec, "mont_mul", kernels.FIELD_WIDTHS)
+        refused += (kernels.FIELD_WIDTHS,)  # the VM's check
+    kernels.check_width(spec, "mont_mul", kernels.FIELD_WIDTHS,
+                        kernels.FULL_WIDTHS)
     for widths in refused:
         with pytest.raises(NotImplementedError) as info:
             kernels.check_width(spec, "kernel", widths)
-        assert ("width (d)" in str(info.value)) == (words == 8)
+        assert "ROADMAP" not in str(info.value)
+        assert ("q < 2^(32W-1)" in str(info.value))
 
 
 @pytest.mark.parametrize("nr", [-1, 13, -5])

@@ -66,13 +66,46 @@ def test_mont_mul_rejects_bad_input(cuda):
         kernels.mont_mul(SPEC, x, x.to(torch.int64))
     with pytest.raises(ValueError):
         kernels.mont_mul(SPEC, x[::2], x[::2])
-    # 8 words with q > 2^255: not built for them
-    for spec in (fs.SECP256R1_FP, fs.SECP256K1_FP, fs.SECP256R1_FR):
-        y = mont.from_int(spec, [1], device=cuda)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-            kernels.mont_mul(spec, y, y)
-        with pytest.raises(NotImplementedError):
-            exp.exp_const(spec, y, 3)
+    # 12-word rows for an 8-word field
+    y = mont.from_int(fs.BLS12_381_FP, [1, 2, 3, 4], device=cuda)
+    with pytest.raises(ValueError):
+        kernels.mont_mul(SPEC, y, y)
+
+
+# the 256-bit 8-word fields (2^255 <= q < 2^256): secp256k1/r1 Fp and Fr
+FULL = [fs.SECP256K1_FP, fs.SECP256K1_FR, fs.SECP256R1_FP, fs.SECP256R1_FR]
+
+
+def full_edges(q):
+    """0, 1, 2, q-1, q-2, q-3, (q-1)/2, (q+1)/2, 2^255, 2^255 - 1 and
+    2^256 - 1 reduced mod q, and q - 2^32."""
+    return [0, 1, 2, q - 1, q - 2, q - 3, (q - 1) // 2, (q + 1) // 2,
+            (1 << 255) % q, ((1 << 255) - 1) % q, ((1 << 256) - 1) % q,
+            q - (1 << 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", FULL, ids=lambda s: s.name)
+def test_mont_mul_kernel_matches_plain_full_width(cuda, spec):
+    """Every pair of the edge operands and random ones over 4,096 lanes:
+    the kernel equals the plain version and Python integers, counted under
+    the "8full" width."""
+    q = spec.modulus
+    edge = full_edges(q)
+    rng = random.Random(spec.name)
+    a = [u for u in edge for _ in edge] + [rng.randrange(q)
+                                           for _ in range(3952)]
+    b = [v for _ in edge for v in edge] + [rng.randrange(q)
+                                           for _ in range(3952)]
+    x = mont.from_int(spec, a, device=cuda)
+    y = mont.from_int(spec, b, device=cuda)
+    by_width = kernels.mont_mul.launches_by_width
+    before = (by_width.get("8full", 0), by_width.get(8, 0))
+    got = kernels.mont_mul(spec, x, y)
+    assert (by_width["8full"], by_width.get(8, 0)) == (before[0] + 1,
+                                                       before[1])
+    assert torch.equal(got, kernels.mont_mul_plain(spec, x, y))
+    assert mont.to_int(spec, got) == [u * v % q for u, v in zip(a, b)]
 
 
 # the 12-word fields of the kernels built at 8, 10 and 12 words
@@ -295,10 +328,11 @@ def test_sub_ntt_2e12_tile_matches_plain_10_12_words(cuda, spec, dit,
 # -- exp_const and the point kernels -----------------------------------------
 
 # a = 0 and a = 1 at 8 words; the bls24 G1 curves at 10, the bls12 at 12,
-# bw6-633 G1 and G2 at 20 and bw6-761 G1 and G2 at 24 (bw6's G2 is over Fp)
+# bw6-633 G1 and G2 at 20 and bw6-761 G1 and G2 at 24 (bw6's G2 is over Fp);
+# secp256k1 (a = 0) and secp256r1 (a = -3) on the 256-bit 8-word Fp
 CURVES = ["bn254_g1", "stark_g1", "bls24_315_g1", "bls24_317_g1",
           "bls12_381_g1", "bls12_377_g1", "bw6_633_g1", "bw6_633_g2",
-          "bw6_761_g1", "bw6_761_g2"]
+          "bw6_761_g1", "bw6_761_g2", "secp256k1_g1", "secp256r1_g1"]
 
 
 def oracle_add(P, Q, p, a):
@@ -494,9 +528,10 @@ def test_point_kernels_reject(cuda):
                                             device=cuda),
                                 torch.zeros(8, dtype=torch.int32,
                                             device=cuda))
-    secp = curve_ops(cs.get_curve("secp256k1_g1"))  # 8 words, q >= 2^255
-    with pytest.raises(NotImplementedError):
-        secp.double(secp.generator_jac(device=cuda))
+    # 8-word rows for a 12-word field
+    bls = cs.get_curve("bls12_381_g1").fp
+    with pytest.raises(ValueError):
+        point_add.jac_double(bls, 0, *P)
 
 
 def vm_state(prog, n_pad, cuda):
@@ -688,8 +723,10 @@ def test_unported_widths_raise_before_any_kernel(cuda):
     """On the card, the Fp2 kernels called with a (words, nr) pair they
     were not built for (bn254's Fp with u^2 = -5, bls12-381's with -7, a
     10-, 20- or 24-word Fp), the NTT kernels called with a 20- or 24-word
-    field (no NTT field has that width) and the secp256k1/r1 products
-    raise NotImplementedError and launch no kernel on the way."""
+    field (no NTT field has that width) and the VM and NTT kernels called
+    with a 256-bit 8-word field (secp256k1/r1, which only the field,
+    exponent and G1 point kernels take) raise NotImplementedError and
+    launch no kernel on the way."""
     from gnark_crypto_tpu_torch.field import point_add2
 
     eight = (radix2.stage, radix2.block, four_step.sub_ntt,
@@ -719,16 +756,19 @@ def test_unported_widths_raise_before_any_kernel(cuda):
         with pytest.raises(NotImplementedError):
             four_step.sub_ntt(fp, a, tw, 2, 4, True, False)
     assert [w.launches for w in eight] == before
-    field = (kernels.mont_mul, exp.exp_const)
-    before = [w.launches for w in field]
-    for spec in (fs.SECP256K1_FP, fs.SECP256K1_FR, fs.SECP256R1_FP,
-                 fs.SECP256R1_FR):
-        x = mont.from_int(spec, [1, 2, 3], device=cuda)
+    before = [w.launches for w in (*eight, vm.vm_execute)]
+    for spec in FULL:
+        a = mont.from_int(spec, list(range(1 << 4)), device=cuda)
+        tw = a[:8]
         with pytest.raises(NotImplementedError):
-            kernels.mont_mul(spec, x, x)
+            radix2.stage(spec, a, tw, 4, 0, False)
         with pytest.raises(NotImplementedError):
-            exp.exp_const(spec, x, 3)
-    assert [w.launches for w in field] == before
+            four_step.sub_ntt(spec, a, tw, 2, 4, True, False)
+        prog = vm.schedule(vm.random_program(spec, 50, seed=3), 8)
+        with pytest.raises(NotImplementedError):
+            vm.vm_execute(prog, torch.zeros((prog.n_entry, prog.tile, 8),
+                                            dtype=torch.int32, device=cuda))
+    assert [w.launches for w in (*eight, vm.vm_execute)] == before
 
 
 @pytest.mark.cuda
@@ -1129,7 +1169,7 @@ def test_sis_on_card_equals_cpu(cuda, name):
 # -- the redesigned exp_const and jac_double2 -----------------------------------
 
 EXP_FIELDS = [fs.BN254_FP, fs.BLS24_315_FP, fs.BLS24_317_FP,
-              fs.BLS12_381_FP, fs.BLS12_377_FP]
+              fs.BLS12_381_FP, fs.BLS12_377_FP, *FULL]
 
 
 def exp_inputs(spec, n, seed, cuda):
@@ -1151,10 +1191,11 @@ def exps(spec):
 def test_exp_const_right_to_left_every_exponent(cuda, spec):
     x = exp_inputs(spec, 129, 17, cuda)
     by_width = exp.exp_const.launches_by_width
+    key = kernels.width_key(spec)   # "8full" for secp256k1/r1
     for e in exps(spec):
-        before = by_width.get(spec.n_words, 0)
+        before = by_width.get(key, 0)
         got = exp.exp_const(spec, x, e)
-        assert by_width[spec.n_words] == before + 1
+        assert by_width[key] == before + 1
         assert torch.equal(got, exp.exp_const_plain(spec, x, e)), e
 
 

@@ -14,7 +14,7 @@ The CUDA wrappers are held without a card: the launch arguments they pass
 at 10 and 12 words (field words, width, strides, rows, shared-memory
 bytes and threads) against Python integers, through a stand-in for the
 built library, and the width check, which takes 8, 10 and 12 words and
-still refuses 20 and 24 and secp256k1. ``tests/test_torch_cuda.py`` holds
+refuses 20 and 24 words and secp256k1/r1. ``tests/test_torch_cuda.py`` holds
 the kernels against these plain versions on the card.
 """
 
@@ -270,7 +270,8 @@ def test_ntt_width_check_admits(name, words):
     "secp256r1_fr"])
 def test_ntt_width_check_refuses(name, fake_card):
     """20 and 24 words (no NTT field has them) and the 256-bit 8-word
-    fields (ROADMAP.md queue 2, width (d)): refused before any launch."""
+    fields (secp256k1/r1 Fr has 2-adicity 6 and 4: no NTT field either):
+    refused before any launch."""
     spec = tfs.get_field(name)
     W = spec.n_words
     x = torch.zeros((16, W), dtype=torch.int32)
@@ -280,5 +281,6 @@ def test_ntt_width_check_refuses(name, fake_card):
                                            False)):
         with pytest.raises(NotImplementedError) as info:
             call()
-        assert ("width (d)" in str(info.value)) == (W == 8)
+        assert (kernels.fills_width(spec)) == (W == 8)
+        assert "q < 2^(32W-1)" in str(info.value)
     assert fake_card == {}
